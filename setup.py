@@ -9,8 +9,13 @@ setup(
         "classical predictors (incl. a native C++ ORCA), and the TrajNet++ "
         "evaluator"
     ),
-    packages=find_packages(include=["trajnetplusplusbaselines_tpu*"]),
-    package_data={"": ["../native/orca.cpp"]},
+    packages=find_packages(
+        include=["trajnetplusplusbaselines_tpu*", "trajnetplusplusbaselines_torch*"]
+    ),
+    package_data={
+        "": ["../native/orca.cpp"],
+        "trajnetplusplusbaselines_torch": ["csrc/*.cu"],
+    },
     python_requires=">=3.10",
     install_requires=[
         "jax",
@@ -18,6 +23,9 @@ setup(
         "optax",
     ],
     extras_require={
+        # the PyTorch / CUDA port (trajnetplusplusbaselines_torch); its kernels
+        # build with nvcc at first use
+        "torch": ["torch"],
         "plot": ["matplotlib", "pandas"],
         "test": ["pytest", "scipy"],
     },
