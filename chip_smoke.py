@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's D-LSTM serving path on one NVIDIA card.
+"""Smoke run of the PyTorch port's D-LSTM serving and training paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -22,7 +22,22 @@ PyTorch built for CUDA (no jax needed).  Phases, one line each:
    and evaluating it; the launch counters are zeroed just before and read
    just after.  The written primaries are checked against a CPU rollout of
    the generated observations, and the warm prediction rate is timed over
-   several passes of ``predict_dataset``.
+   several passes of ``predict_dataset``;
+6. train (the main path's second entry point): a synthetic train / val /
+   test split, and ``trainers.lstm.main([... "--device", "cuda"])`` training
+   the flagship D-LSTM for 2 epochs at batch 8; the counters are zeroed just
+   before and read just after: the grid kernel launches 19 times per train
+   batch, the fused step 2 x 19 times per val batch (validation records no
+   autograd, so its teacher-forced pass and its free rollout both run it).
+   Every logged loss is finite, epoch 2's train loss is below epoch 1's, and
+   the written pickle serves the test part through ``lstm_cli``.  One train
+   step's loss and gradients with the grid kernel against the plain grid
+   (equal: the grid is bit-exact and the rest is the same torch code), an
+   f32 step on the
+   card against an f64 step on the CPU (loss 1e-5 relative, gradients 1e-4
+   relative + 1e-5 of each leaf's largest), device augmentation keeping
+   pairwise distances, and the train step's time at batch 8 and 256 and the
+   grid kernel's against the plain grid's (CUDA events, warm).
 
 Then one JSON line of the kernels and, last, ``{"ok": true, "device": ...}``.
 Any failed phase raises, so the script exits non-zero and prints no result;
@@ -31,12 +46,13 @@ so does a machine without CUDA or a directory without the package.
     python3 chip_smoke.py --profile OUT_DIR
 
 adds a profile phase before the last two lines: kernel and plain times at
-larger rollouts, and ``torch.profiler`` tables of warm rollouts and of a warm
-``predict_dataset`` pass, written into OUT_DIR.
+larger rollouts, and ``torch.profiler`` tables of warm rollouts, of a warm
+``predict_dataset`` pass and of warm train steps, written into OUT_DIR.
 """
 
 import argparse
 import json
+import logging
 import math
 import os
 import subprocess
@@ -62,6 +78,10 @@ SERVE_PASSES = 5
 CELL_SIDE, N = 0.6, 12
 STEP_ATOL, STEP_RTOL = 2e-5, 1e-4
 POSITION_ATOL = 1e-3
+TRAIN_BATCH, TRAIN_EPOCHS = 8, 2  # the trainer's default batch
+TRAIN_TIMED = ((TRAIN_BATCH, 8), (256, 8))  # (scenes, agents) of the timed train steps
+# an f32 step on the card against an f64 step on the CPU
+CPU_LOSS_RTOL, CPU_GRAD_RTOL, CPU_GRAD_ATOL_SHARE = 1e-5, 1e-4, 1e-5
 
 
 def say(phase, **fields):
@@ -128,15 +148,40 @@ def rollout_inputs(rng, s, a, device):
     return torch.from_numpy(xy).to(device), torch.from_numpy(mask).to(device)
 
 
+def train_inputs(rng, s, a, device):
+    """One training batch at [S, A] as the trainer gathers it: 21 frames of
+    random walks (xy [21, S, A, 2] f32), a late-appearing agent, an agent
+    absent mid-way, padded slots, and every scene real."""
+    xy = rng.normal(scale=0.15, size=(21, s, a, 2)).cumsum(axis=0)
+    xy += rng.uniform(-3, 3, size=(1, s, a, 2))
+    mask = np.ones((21, s, a), bool)
+    mask[:3, :, -1] = False
+    if a > 3:
+        mask[3:5, :, 1] = False
+        mask[:, : s // 2, -2] = False
+    xy = np.where(mask[..., None], xy, 0.0).astype(np.float32)
+    return (torch.from_numpy(xy).to(device), torch.from_numpy(mask).to(device),
+            torch.ones(s, dtype=torch.bool, device=device))
+
+
+def max_diff(got, want) -> float:
+    """Largest absolute difference over two sequences of tensors."""
+    return max(float((g.double().cpu() - w.double().cpu()).abs().max()) for g, w in zip(got, want))
+
+
 # --------------------------------------------------------------- split
-def write_split(root, rng, n_scenes=300, big=140):
-    """A TrajNet++ split: test/ holds the 9 observed frames, test_private/
-    all 21.  Scenes of 2..32 agents (buckets 4..32) and one of ``big``.
+def write_split(root, rng, n_scenes=300, big=140, observed_only=("test",),
+                full=("test_private",)):
+    """A TrajNet++ split: the ``observed_only`` subsets (test/) hold the 9
+    observed frames, the ``full`` ones (test_private/, train/, val/) all 21.
+    Scenes of 2..32 agents (buckets 4..32) and, unless ``big`` is None, one
+    of ``big``.
 
     Returns per scene (primary's id, observed positions [9, n, 2] as written,
     NaN where absent), agents in the order a TrajNet++ reader gives them:
     the primary, then the others by first frame."""
-    sizes = list(rng.integers(2, 33, size=n_scenes - 1)) + [big]
+    sizes = list(rng.integers(2, 33, size=n_scenes - (big is not None)))
+    sizes += [big] if big is not None else []
     test, private, observed = [], [], []
     ped = 0
     for sid, n in enumerate(sizes):
@@ -165,17 +210,19 @@ def write_split(root, rng, n_scenes=300, big=140):
                     test.append(row)
                     xy[t, j] = x, y
         observed.append((scene["scene"]["p"], xy[:, np.argsort(firsts, kind="stable")]))
-    for sub, rows in (("test", test), ("test_private", private)):
+    for sub, rows in [(sub, test) for sub in observed_only] + [(sub, private) for sub in full]:
         os.makedirs(os.path.join(root, sub), exist_ok=True)
         with open(os.path.join(root, sub, "synth.ndjson"), "w") as f:
             f.writelines(json.dumps(r) + "\n" for r in rows)
     return observed
 
 
-def profiled(fn, reps, table_path):
+def profiled(fn, reps, table_path, kernel="fused_step_kernel"):
     """Run ``fn`` ``reps`` times, warm, under ``torch.profiler``; write the
-    op table to ``table_path`` and return the window's device time, the
-    fused kernel's share of it, the wall time and the device's busy share."""
+    op tables (by device time, and by host time beside it) to
+    ``table_path`` and return the window's device time, the named kernel's
+    part of it, the device events per rep, the wall time and the device's
+    busy share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -189,14 +236,157 @@ def profiled(fn, reps, table_path):
         wall_ms = (time.perf_counter() - t0) * 1e3
     device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     device_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
-    kernel_ms = sum(e.time_range.elapsed_us() for e in device
-                    if "fused_step_kernel" in e.name) / 1e3
+    kernel_ms = sum(e.time_range.elapsed_us() for e in device if kernel in e.name) / 1e3
     averages = prof.key_averages()
     key = ("self_device_time_total" if hasattr(averages[0], "self_device_time_total")
            else "self_cuda_time_total")
-    Path(table_path).write_text(averages.table(sort_by=key, row_limit=30))
-    return {"reps": reps, "device_ms": device_ms, "fused_kernel_ms": kernel_ms,
-            "wall_ms": wall_ms, "device_busy": device_ms / wall_ms if wall_ms else 0.0}
+    Path(table_path).write_text(averages.table(sort_by=key, row_limit=30) + "\n"
+                                + averages.table(sort_by="self_cpu_time_total", row_limit=30))
+    return {"reps": reps, "device_ms": device_ms, "kernel": kernel, "kernel_ms": kernel_ms,
+            "device_events_per_rep": len(device) / reps, "wall_ms": wall_ms,
+            "device_busy": device_ms / wall_ms if wall_ms else 0.0}
+
+
+def train_phase(dev, rng) -> dict:
+    """Phase 6: train the flagship D-LSTM through ``trainers.lstm.main`` on
+    ``dev`` and check it (see the module's docstring).  Returns the launch
+    counts of that run, the timings and the timed trainer."""
+    from trajnetplusplusbaselines_torch.evaluator import lstm_cli
+    from trajnetplusplusbaselines_torch.ops.cuda import fused_step
+    from trajnetplusplusbaselines_torch.trainers import lstm as train_cli
+    from trajnetplusplusbaselines_torch.trainers.common import bucket_batches, step_lr
+    from trajnetplusplusbaselines_torch.utils.convert import params_from_jax, params_to_numpy
+
+    cwd = os.getcwd()
+    root, name = "DATA_BLOCK/synth_train", "lstm_directional_smoke"
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            write_split(root, rng, n_scenes=320, big=None, observed_only=(), full=("train",))
+            write_split(root, rng, n_scenes=96, big=None, observed_only=(), full=("val",))
+            test_observed = write_split(root, rng, n_scenes=64, big=None)
+
+            fused_step.fused_dlstm_step.launches = 0
+            fused_step.directional_grid.launches = 0
+            t0 = time.perf_counter()
+            trainer = train_cli.main(argv=[
+                "--path", "synth_train", "--type", "directional", "--n", str(N),
+                "--cell_side", str(CELL_SIDE), "--pool_dim", "256", "--hidden-dim", "128",
+                "--coordinate-embedding-dim", "64", "--epochs", str(TRAIN_EPOCHS),
+                "--batch_size", str(TRAIN_BATCH), "--save_every", "1", "--seed", "0",
+                "-o", "smoke", "--device", DEVICE])
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            train_launches = {"fused_dlstm_step": fused_step.fused_dlstm_step.launches,
+                              "directional_grid": fused_step.directional_grid.launches}
+            for handler in logging.getLogger().handlers[:]:  # the trainer's log file
+                handler.close()
+                logging.getLogger().removeHandler(handler)
+
+            # batches per epoch from the datasets the trainer made resident on
+            # the card, train first (epoch 0 trains before it validates)
+            (train_ds, resident), (val_ds, val_resident) = trainer._resident.values()
+
+            def batches_per_epoch(dataset):
+                plan = dataset.epoch_plan(TRAIN_BATCH, np.random.default_rng(0), shuffle=False)
+                return sum(idx.shape[0] for idx, _ in plan.values())
+
+            train_batches, val_batches = map(batches_per_epoch, (resident, val_resident))
+            n_train, n_val = len(train_ds), len(val_ds)
+            want = {"fused_dlstm_step": 2 * 19 * val_batches * TRAIN_EPOCHS,
+                    "directional_grid": 19 * train_batches * TRAIN_EPOCHS}
+            if train_launches != want:
+                raise AssertionError(f"training launched {train_launches}, expected {want}")
+            out = f"OUTPUT_BLOCK/synth_train/{name}.pkl"
+            with open(out + ".log") as f:
+                records = [json.loads(line) for line in f]
+            by_type = {kind: [r for r in records if r.get("type") == kind]
+                       for kind in ("train", "train-epoch", "val-epoch")}
+            losses = ([r["loss"] for r in by_type["train"] + by_type["train-epoch"]]
+                      + [r[k] for r in by_type["val-epoch"] for k in ("loss", "test_loss")])
+            epoch_losses = [r["loss"] for r in by_type["train-epoch"]]
+            if (len(epoch_losses) != TRAIN_EPOCHS or len(by_type["val-epoch"]) != TRAIN_EPOCHS
+                    or not np.isfinite(losses).all()):
+                raise AssertionError(f"training logged {by_type}")
+            if not epoch_losses[1] < epoch_losses[0]:
+                raise AssertionError(f"train loss did not fall: {epoch_losses}")
+
+            # the trained pickle serves the test part through lstm_cli
+            table = lstm_cli.main(["--path", "synth_train", "--output", out, "--device", DEVICE])
+            served = table.results[f"{name}_modes1"][32:40]
+            if served[0] != len(test_observed) or not np.isfinite(served[1:3]).all():
+                raise AssertionError(f"the trained model scored {served}")
+
+            # one batch of the train split, gathered on the card
+            key =(21, 8) if (21, 8) in resident.buckets else next(iter(resident.buckets))
+            idx, valid = resident.epoch_plan(TRAIN_BATCH, np.random.default_rng(1))[key]
+            batch = next(bucket_batches(resident.buckets[key], idx, valid))
+            rotated = next(bucket_batches(resident.buckets[key], idx, valid, augment=True,
+                                          generator=torch.Generator(device=dev).manual_seed(0)))
+            flat = [x[0].reshape(-1, key[1], 2) for x in (batch, rotated)]
+            rotation_err = max_diff([torch.cdist(flat[1], flat[1])], [torch.cdist(flat[0], flat[0])])
+            if rotation_err > 1e-4:
+                raise AssertionError(f"rotation moved pairwise distances by {rotation_err} m")
+        finally:
+            os.chdir(cwd)
+
+    # one train step with the grid kernel and with the plain grid
+    loss_k, grads_k = trainer.loss_and_grads(*batch)
+    with mock.patch.object(fused_step, "directional_grid", fused_step.directional_grid_plain):
+        loss_p, grads_p = trainer.loss_and_grads(*batch)
+    grid_train_err = max_diff([loss_k, *grads_k], [loss_p, *grads_p])
+    for path, g, w in zip(("loss", *trainer.paths), [loss_k, *grads_k], [loss_p, *grads_p]):
+        if not torch.equal(g, w):
+            raise AssertionError(f"{path} with the grid kernel differs from the plain grid's "
+                                 f"by {max_diff([g], [w])}")
+
+    # an f32 step on the card against an f64 step on the CPU
+    cpu_trainer = train_cli.Trainer(trainer.model, params_from_jax(
+        params_to_numpy(trainer.params), dtype=torch.float64), step_lr(1e-3, 10))
+    loss_c, grads_c = cpu_trainer.loss_and_grads(*(x.cpu() for x in batch))
+    cpu_loss_rel = abs(float(loss_k) - float(loss_c)) / abs(float(loss_c))
+    if cpu_loss_rel > CPU_LOSS_RTOL:
+        raise AssertionError(f"card and CPU losses differ by {cpu_loss_rel} relative")
+    cpu_grad_err = 0.0
+    for path, g, w in zip(trainer.paths, grads_k, grads_c):
+        scale = float(w.abs().max())
+        torch.testing.assert_close(g.cpu().double(), w, rtol=CPU_GRAD_RTOL,
+                                   atol=CPU_GRAD_ATOL_SHARE * scale,
+                                   msg=lambda m: f"gradient of {path}: {m}")
+        cpu_grad_err = max(cpu_grad_err, max_diff([g], [w]) / max(scale, 1e-30))
+
+    # warm train steps (CUDA events), and the grid kernel at the batch-8 shape
+    timed = train_cli.Trainer(trainer.model, params_from_jax(params_to_numpy(trainer.params),
+                                                             device=dev), step_lr(1e-3, 10))
+    train_times = {}
+    for s, a in TRAIN_TIMED:
+        b = train_inputs(rng, s, a, dev)
+        reps = 20 if s <= TRAIN_BATCH else 10
+        train_times[(s, a)] = {
+            "train_step_ms": time_ms(lambda: timed.train_step(*b), reps=reps),
+            "fwd_bwd_ms": time_ms(lambda: timed.loss_and_grads(*b), reps=reps),
+        }
+        train_times[(s, a)]["train_scenes_per_s"] = s / train_times[(s, a)]["train_step_ms"] * 1e3
+    obs1, obs2, p1, p2 = step_inputs(rng, TRAIN_BATCH, 8, dev)
+    grid_ms = time_ms(lambda: fused_step.directional_grid(obs1, obs2, p1, p2), reps=50)
+    plain_grid_ms = time_ms(lambda: fused_step.directional_grid_plain(obs1, obs2, p1, p2),
+                            reps=50)
+    say("train", train_scenes=n_train, val_scenes=n_val, train_batches_per_epoch=train_batches,
+        val_batches_per_epoch=val_batches, epochs=TRAIN_EPOCHS, cli_seconds=train_s,
+        launches=train_launches, epoch_losses=epoch_losses,
+        val_losses=[(r["loss"], r["test_loss"]) for r in by_type["val-epoch"]],
+        served_ade_fde=served[1:3], rotation_err_m=rotation_err, check_bucket=key,
+        grid_vs_plain_max_diff=grid_train_err,
+        cpu_loss_rel_err=cpu_loss_rel, cpu_grad_max_err_share=cpu_grad_err,
+        grid_ms=grid_ms, plain_grid_ms=plain_grid_ms,
+        steps={f"{s}x{a}": row for (s, a), row in train_times.items()})
+    print("Train  " + "  ".join(
+        "S={} A={}: {:.3f} ms/step, {:.1f} scenes/s".format(
+            s, a, row["train_step_ms"], row["train_scenes_per_s"])
+        for (s, a), row in train_times.items())
+        + "  grid {:.4f} ms vs plain {:.4f} ms".format(grid_ms, plain_grid_ms), flush=True)
+    return {"launches": train_launches, "grid_ms": grid_ms, "plain_grid_ms": plain_grid_ms,
+            "timed": timed}
 
 
 def main() -> int:
@@ -248,12 +438,14 @@ def main() -> int:
     params = model.init_params(torch.Generator().manual_seed(0), device=dev)
 
     # ---- 2: grid, bit-exact
+    grid_err = 0.0
     for a in BUCKETS:
         s = math.ceil(ROWS_PER_BUCKET / a)
         obs1, obs2, p1, p2 = step_inputs(rng, s, a, dev)
         got = fused_step.directional_grid(obs1, obs2, p1, p2, cell_side=CELL_SIDE)
         want = fused_step.directional_grid_plain(obs1, obs2, p1, p2, cell_side=CELL_SIDE)
         torch.cuda.synchronize()
+        grid_err = max(grid_err, max_diff([got], [want]))
         if not torch.equal(got, want):
             bad = (got != want).nonzero()[:5].tolist()
             raise AssertionError(f"grid differs at A={a}: first cells {bad}")
@@ -407,6 +599,10 @@ def main() -> int:
           "(median {:.1f}, {} passes)".format(n_scored, ade, fde, min(rates), max(rates),
                                               float(np.median(rates)), SERVE_PASSES), flush=True)
 
+
+    # ---- 6: train, the main path's second entry point
+    train = train_phase(dev, rng)
+
     # ---- profile (optional): larger rollouts and profiler tables
     if opts.profile:
         out = Path(opts.profile)
@@ -427,17 +623,37 @@ def main() -> int:
         say("profile_trace", what=f"predict_dataset {len(processed)} scenes", **profiled(
             lambda: predictor.predict_dataset(processed, goals, predict_args), 1,
             out / "predict_dataset.txt"))
+        for s, a in TRAIN_TIMED:
+            b = train_inputs(rng, s, a, dev)
+            say("profile_trace", what=f"train_step S={s} A={a}", **profiled(
+                lambda: train["timed"].train_step(*b), 10, out / f"train_step_{s}x{a}.txt",
+                kernel="directional_grid_kernel"))
 
     main_s, main_a = ROLLOUTS[0]
+    source = "trajnetplusplusbaselines_torch/csrc/fused_step.cu"
+    by_path = {name: {"serve": main_launches[name], "train": train["launches"][name]}
+               for name in main_launches}
     print(json.dumps({"kernels": [{
         "name": "fused_dlstm_step",
         "route": "cuda",
-        "source": "trajnetplusplusbaselines_torch/csrc/fused_step.cu",
+        "source": source,
         "replaces": "trajnetplusplusbaselines_tpu/ops/pallas/fused_step.py:52",
-        "launches": main_launches["fused_dlstm_step"],
+        "launches": sum(by_path["fused_dlstm_step"].values()),
+        "launches_by_path": by_path["fused_dlstm_step"],
         "max_abs_err": step_err,
         "ms": times[(main_s, main_a)]["step_ms"],
         "plain_ms": times[(main_s, main_a)]["plain_step_ms"],
+    }, {
+        # the fused kernel's grid stage alone, launched by the training step
+        "name": "directional_grid",
+        "route": "cuda",
+        "source": source,
+        "replaces": "trajnetplusplusbaselines_tpu/ops/pallas/fused_step.py:76",
+        "launches": sum(by_path["directional_grid"].values()),
+        "launches_by_path": by_path["directional_grid"],
+        "max_abs_err": grid_err,
+        "ms": train["grid_ms"],
+        "plain_ms": train["plain_grid_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

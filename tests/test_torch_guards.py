@@ -1,7 +1,8 @@
 """Guards of the port: no jax, no quiet CPU fallback, and the kernel on the card.
 
-The test marked ``cuda`` compares the CUDA kernel with its plain version and
-runs only where a card is present; everywhere else it skips.  The port needs
+The tests marked ``cuda`` compare the CUDA kernel with its plain version, and
+take a train step through its grid stage; they run only where a card is
+present, and everywhere else they skip.  The port needs
 no jax; where jax is not installed, run it without the suite's conftest
 (which imports jax):
 
@@ -17,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from .torch_parity import flagship_params, port_model, step_inputs
+from .torch_parity import example_batch, flagship_params, port_model, step_inputs
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -33,7 +34,12 @@ def test_port_imports_no_jax():
         "import trajnetplusplusbaselines_torch.models.lstm\n"
         "import trajnetplusplusbaselines_torch.ops.cuda.fused_step\n"
         "import trajnetplusplusbaselines_torch.ops.cuda.build\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
+        "import trajnetplusplusbaselines_torch.ops.pooling\n"
+        "import trajnetplusplusbaselines_torch.losses\n"
+        "import trajnetplusplusbaselines_torch.trainers.common\n"
+        "import trajnetplusplusbaselines_torch.trainers.lstm\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m in ('jax', 'optax') or m.startswith(('jax.', 'jaxlib', 'optax.')))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -103,3 +109,103 @@ def test_kernel_matches_plain_on_the_card():
             for g, x in zip(got[:3], want[:3]):
                 torch.testing.assert_close(g, x, atol=2e-5, rtol=1e-4)
             assert torch.equal(got[3], want[3])
+
+
+def _flagship(requires_grad):
+    from trajnetplusplusbaselines_torch.models.lstm import LSTM
+    from trajnetplusplusbaselines_torch.ops.pooling import GridBasedPooling
+
+    model = LSTM(pool=GridBasedPooling(type_="directional", cell_side=0.6, n=12, out_dim=256))
+    params = model.init_params(torch.Generator().manual_seed(2))
+    for leaf in (params["encoder"]["w_ih"], params["decoder"]["w_ih"]):
+        leaf.requires_grad_(requires_grad)
+    return model, params
+
+
+def test_grid_wrapper_refuses_positions_that_require_grad():
+    from trajnetplusplusbaselines_torch.ops.cuda import fused_step
+
+    obs1, obs2, p1, p2 = (torch.from_numpy(x) for x in step_inputs(0, 2, 4, dtype=np.float32))
+    fused_step.directional_grid(obs1, obs2, p1, p2)
+    with pytest.raises(ValueError, match="no gradient"):
+        fused_step.directional_grid(obs1, obs2.clone().requires_grad_(), p1, p2)
+
+
+def test_fused_step_refuses_to_be_recorded():
+    from trajnetplusplusbaselines_torch.ops.cuda import fused_step
+
+    _, params = _flagship(requires_grad=True)
+    obs1, obs2, p1, p2 = (torch.from_numpy(x) for x in step_inputs(1, 2, 4, dtype=np.float32))
+    h = c = torch.zeros(2, 4, 128)
+    weights = fused_step.weights_from_params(params, "encoder")
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_step.fused_dlstm_step(obs1, obs2, p1, p2, h, c, weights)
+    with torch.no_grad():
+        fused_step.fused_dlstm_step(obs1, obs2, p1, p2, h, c, weights)
+
+
+@pytest.mark.parametrize("grad_mode,requires_grad,want", [
+    (True, True, "grid"), (False, True, "fused"), (True, False, "fused")])
+def test_step_switch_is_whether_autograd_records(grad_mode, requires_grad, want, monkeypatch):
+    """The one switch between the fused step and grid kernel + autograd."""
+    from trajnetplusplusbaselines_torch.models import lstm as lstm_module
+
+    calls = {"fused": 0, "grid": 0}
+    for name, key in (("fused_dlstm_step", "fused"), ("grid_dlstm_step", "grid")):
+        def counted(*args, _fn=getattr(lstm_module, name), _key=key, **kw):
+            calls[_key] += 1
+            return _fn(*args, **kw)
+        monkeypatch.setattr(lstm_module, name, counted)
+    model, params = _flagship(requires_grad)
+    xy, mask = example_batch(2, 4)
+    xy, mask = torch.from_numpy(xy.astype(np.float32)), torch.from_numpy(mask)
+    with torch.set_grad_enabled(grad_mode):
+        rel, _, _ = model.forward(params, xy[:9], mask[:9], prediction_truth=xy[9:20],
+                                  prediction_truth_mask=mask[9:20])
+    assert calls[want] == 19 and sum(calls.values()) == 19
+    assert rel.requires_grad == (want == "grid")
+
+
+def test_trainer_default_device_refuses_to_run_on_the_cpu(tmp_path, monkeypatch):
+    from trajnetplusplusbaselines_torch.trainers import lstm as trainer_cli
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is available")
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        trainer_cli.main(argv=["--path", "synthset", "--type", "directional"])
+    assert not os.path.exists(tmp_path / "OUTPUT_BLOCK")  # nothing ran
+
+
+@pytest.mark.cuda
+def test_train_step_through_the_grid_kernel_on_the_card():
+    """One flagship train step on the card launches the grid kernel 19 times
+    and gives the loss and gradients of the same step with the plain grid."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from unittest import mock
+
+    from trajnetplusplusbaselines_torch.ops.cuda import fused_step
+    from trajnetplusplusbaselines_torch.trainers.common import step_lr
+    from trajnetplusplusbaselines_torch.trainers.lstm import Trainer
+    from trajnetplusplusbaselines_torch.utils.convert import params_to
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, params = _flagship(requires_grad=False)
+    trainer = Trainer(model, params_to(params, "cuda"), step_lr(1e-3, 10))
+    xy, mask = example_batch(8, 8, seed=4)
+    batch = (torch.from_numpy(xy.astype(np.float32)).cuda(), torch.from_numpy(mask).cuda(),
+             torch.ones(8, dtype=torch.bool, device="cuda"))
+    before = fused_step.directional_grid.launches
+    loss, grads = trainer.loss_and_grads(*batch)
+    torch.cuda.synchronize()
+    assert fused_step.directional_grid.launches - before == 19
+    with mock.patch.object(fused_step, "directional_grid", fused_step.directional_grid_plain):
+        plain_loss, plain_grads = trainer.loss_and_grads(*batch)
+    assert bool(torch.isfinite(loss))
+    # the grid is bit-exact and the rest is the same torch code
+    assert torch.equal(loss, plain_loss)
+    for path, g, p in zip(trainer.paths, grads, plain_grads):
+        assert torch.equal(g, p), path
+    trainer.train_step(*batch)
+    assert fused_step.directional_grid.launches - before == 38

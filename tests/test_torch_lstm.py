@@ -88,8 +88,11 @@ def test_not_ported_paths_raise():
     params = params_from_jax(jax.tree.map(np.asarray, jparams))
     xy, mask = example_batch(s=1, a=4)
     obs, m = torch.from_numpy(xy[:9]), torch.from_numpy(mask[:9])
-    with pytest.raises(NotImplementedError, match="teacher forcing"):
-        model.forward(params, obs, m, torch.from_numpy(xy[9:20]), torch.from_numpy(mask[9:20]))
+    truth, truth_mask = torch.from_numpy(xy[9:20]), torch.from_numpy(mask[9:20])
+    with pytest.raises(ValueError):  # teacher forcing and n_predict together
+        model.forward(params, obs, m, truth, truth_mask, n_predict=12)
+    with pytest.raises(ValueError):  # truth without its mask
+        model.forward(params, obs, m, truth)
     with pytest.raises(ValueError):
         model.forward(params, obs, m)
     with pytest.raises(NotImplementedError):

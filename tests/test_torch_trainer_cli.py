@@ -1,0 +1,187 @@
+"""The port's trainer CLI on the CPU: train, checkpoint, resume, transfer.
+
+Mirrors ``tests/test_trainers.py``'s LSTM flow through
+``trajnetplusplusbaselines_torch.trainers.lstm --device cpu``, plus the
+checkpoint round trip (the port's sidecar restores the same params and Adam
+moments; a JAX sidecar's weights load without optax classes) and the flags
+the port refuses.
+"""
+
+import os
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from trajnetplusplusbaselines_tpu.tools.plot_log import read_log
+from trajnetplusplusbaselines_torch.trainers import lstm as trainer_cli
+from trajnetplusplusbaselines_torch.utils import checkpoint as ckpt
+
+from .helpers import make_synthetic_dataset
+
+TINY = ["--hidden-dim", "16", "--coordinate-embedding-dim", "8", "--pool_dim", "16",
+        "--device", "cpu"]
+
+
+@pytest.fixture
+def data_tree(tmp_path, monkeypatch):
+    make_synthetic_dataset(os.path.join(str(tmp_path), "DATA_BLOCK", "synthset"))
+    monkeypatch.chdir(str(tmp_path))
+    return str(tmp_path)
+
+
+def _train(*flags):
+    return trainer_cli.main(argv=["--path", "synthset", "--batch_size", "2", *TINY, *flags])
+
+
+def test_cli_trains_checkpoints_and_resumes(data_tree):
+    # (no --augment: a fresh rotation each epoch of 2 batches hides the fall)
+    _train("--epochs", "2", "--type", "occupancy", "--n", "4", "--save_every", "1", "-o", "t1")
+    out = "OUTPUT_BLOCK/synthset/lstm_occupancy_t1.pkl"
+    for suffix in ("", ".state", ".epoch0", ".epoch1", ".epoch2", ".epoch1.state"):
+        assert os.path.exists(out + suffix), suffix
+    records = read_log(out + ".log")
+    losses = [r["loss"] for r in records["train-epoch"]]
+    assert len(losses) == 2 and losses[-1] < losses[0]
+    assert len(records["val-epoch"]) == 2
+    assert all(np.isfinite([r["loss"], r["test_loss"]]).all() for r in records["val-epoch"])
+
+    # the predictor pickle serves through the port
+    from trajnetplusplusbaselines_tpu.data import Reader
+
+    predictor = ckpt.load_predictor(out)
+    _, paths = next(Reader("DATA_BLOCK/synthset/test/synth.ndjson", scene_type="paths").scenes())
+    assert predictor(paths, np.zeros((len(paths), 2)))[0][0].shape == (12, 2)
+
+    # --load-full-state continues from the saved epoch, appending to the log
+    trainer = _train("--epochs", "3", "--type", "occupancy", "--n", "4", "--save_every", "10",
+                     "-o", "t1", "--load-full-state", out + ".state")
+    records = read_log(out + ".log")
+    assert [r["epoch"] for r in records["train-epoch"]] == [1, 2, 3]
+    assert ckpt.load_state(out + ".state")["epoch"] == 3
+    steps = {float(s["step"]) for s in trainer.optimizer.state.values()}
+    assert steps == {6.0}  # 2 batches per epoch, 3 epochs of Adam steps
+
+
+def test_cli_nonstrict_load(data_tree):
+    _train("--epochs", "1", "--type", "vanilla", "-o", "t2")
+    vanilla = ckpt.load_state("OUTPUT_BLOCK/synthset/lstm_vanilla_t2.pkl.state")["params"]
+    trainer = _train("--epochs", "0", "--type", "occupancy", "--n", "4", "-o", "t3",
+                     "--nonstrict-load-state", "OUTPUT_BLOCK/synthset/lstm_vanilla_t2.pkl.state")
+    assert os.path.exists("OUTPUT_BLOCK/synthset/lstm_occupancy_t3.pkl")
+    # the LSTM weights came over; the occupancy model's wider input and its
+    # pool kept their own initialisation
+    np.testing.assert_array_equal(trainer.params["hidden2normal"]["linear"]["w"].detach(),
+                                  vanilla["hidden2normal"]["linear"]["w"])
+    assert trainer.params["encoder"]["w_ih"].shape[0] == 8 + 16
+
+
+def test_cli_directional_with_every_training_option(data_tree):
+    trainer = _train("--epochs", "2", "--type", "directional", "--n", "4", "-o", "t4",
+                     "--augment", "--augment_noise", "--normalize_scene", "--loss", "L2",
+                     "--col_wt", "1.0", "--clip_grad", "0.5", "--step_size", "1",
+                     "--sample", "0.75", "--start_length", "2")
+    records = read_log("OUTPUT_BLOCK/synthset/lstm_directional_t4.pkl.log")
+    assert len(records["train-epoch"]) == 2
+    assert all(np.isfinite(r["loss"]) for r in records["train-epoch"] + records["val-epoch"])
+    assert records["process"][0]["args"]["device"] == "cpu"
+    assert trainer.optimizer.param_groups[0]["lr"] == pytest.approx(1e-4)  # StepLR, epoch 1
+    assert all(leaf.device.type == "cpu" for leaf in trainer.leaves)
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--goals"], "item 2"),
+    (["--obs_dropout"], "item 11"),
+    (["--bf16"], "item 7"),
+    (["--remat"], "item 7"),
+    (["--dp", "2"], "item 10"),
+    (["--orbax"], "Do not port"),
+    (["--type", "social"], "item 2"),
+    (["--type", "attentionmlp"], "item 3"),
+])
+def test_cli_refuses_unported_flags(data_tree, flags, match):
+    with pytest.raises(NotImplementedError, match=match):
+        _train("--epochs", "1", "-o", "x", *flags)
+    assert not os.path.exists("OUTPUT_BLOCK")  # refused before anything ran
+
+
+def test_port_state_round_trip(data_tree):
+    trainer = _train("--epochs", "1", "--type", "directional", "--n", "4", "-o", "rt")
+    out = "OUTPUT_BLOCK/synthset/lstm_directional_rt.pkl"
+    state = ckpt.load_state(out + ".state")
+    assert state["epoch"] == 1 and ckpt.is_port_opt_state(state["opt_state"])
+    assert set(state["opt_state"]) == set(trainer.paths)
+
+    restored = trainer_cli.Trainer(trainer.model, ckpt.params_from_jax(state["params"]),
+                                   trainer.lr_schedule)
+    from trajnetplusplusbaselines_torch.trainers.common import adam_state_from_numpy
+
+    adam_state_from_numpy(restored.optimizer, restored.paths, state["opt_state"])
+    for a, b in zip(trainer.leaves, restored.leaves):
+        assert torch.equal(a.detach(), b.detach())
+        sa, sb = trainer.optimizer.state[a], restored.optimizer.state[b]
+        assert float(sa["step"]) == float(sb["step"]) == 2.0
+        assert torch.equal(sa["exp_avg"], sb["exp_avg"])
+        assert torch.equal(sa["exp_avg_sq"], sb["exp_avg_sq"])
+
+
+def test_jax_state_loads_without_optax(data_tree):
+    from trajnetplusplusbaselines_tpu.trainers import lstm as jax_trainer
+
+    jax_trainer.main(argv=["--epochs", "1", "--path", "synthset", "--type", "vanilla",
+                           "--batch_size", "2", "-o", "j1", "--hidden-dim", "16",
+                           "--coordinate-embedding-dim", "8"])
+    jstate = "OUTPUT_BLOCK/synthset/lstm_vanilla_j1.pkl.state"
+    state = ckpt.load_state(jstate)
+    assert not ckpt.is_port_opt_state(state["opt_state"])
+    assert isinstance(state["opt_state"], ckpt.OptaxState)  # no optax class was made
+    jparams = ckpt.load_predictor("OUTPUT_BLOCK/synthset/lstm_vanilla_j1.pkl").params
+    np.testing.assert_array_equal(state["params"]["decoder"]["w_hh"],
+                                  jparams["decoder"]["w_hh"].numpy())
+
+    trainer = _train("--epochs", "1", "--type", "vanilla", "-o", "p1", "--load-state", jstate)
+    got = trainer.params["decoder"]["w_hh"]
+    assert got.dtype == torch.from_numpy(state["params"]["decoder"]["w_hh"]).dtype  # as stored
+    assert not torch.equal(got.detach(), torch.from_numpy(state["params"]["decoder"]["w_hh"]))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        _train("--epochs", "2", "--type", "vanilla", "-o", "p1", "--load-full-state", jstate)
+
+
+def test_merge_params_nonstrict_matches_jax():
+    import jax
+
+    from trajnetplusplusbaselines_tpu.utils.checkpoint import merge_params_nonstrict as jmerge
+    from trajnetplusplusbaselines_torch.models.lstm import LSTM
+    from trajnetplusplusbaselines_torch.ops.pooling import make_pool
+    from trajnetplusplusbaselines_torch.utils.convert import params_to_numpy
+
+    args = types.SimpleNamespace(n=4, pool_dim=16, hidden_dim=16)
+    gen = torch.Generator().manual_seed(0)
+    loaded = params_to_numpy(LSTM(embedding_dim=8, hidden_dim=16).init_params(gen))
+    init = LSTM(embedding_dim=8, hidden_dim=16,
+                pool=make_pool("directional", args)).init_params(gen, dtype=torch.float64)
+    merged, skipped = ckpt.merge_params_nonstrict(init, loaded)
+    _, want_skipped = jmerge(jax.tree.map(lambda x: x.numpy(), init), loaded)
+    assert sorted(skipped) == sorted(want_skipped)
+    assert "pool/embedding/0/w" in skipped and "encoder/w_ih" in skipped
+    assert merged["decoder"]["w_hh"].dtype == torch.float64
+    np.testing.assert_array_equal(merged["decoder"]["w_hh"].numpy(), loaded["decoder"]["w_hh"])
+    assert merged["pool"] is not None and torch.equal(merged["encoder"]["w_ih"],
+                                                      init["encoder"]["w_ih"])
+
+
+def test_make_pool():
+    from trajnetplusplusbaselines_torch.ops.pooling import POOL_TYPES, make_pool
+    from trajnetplusplusbaselines_tpu.ops.pooling import POOL_TYPES as JPOOL_TYPES
+
+    assert POOL_TYPES == JPOOL_TYPES
+    assert make_pool("vanilla") is None
+    pool = make_pool("directional", types.SimpleNamespace(n=4, cell_side=0.5, pool_dim=16))
+    assert (pool.type_, pool.n, pool.cell_side, pool.out_dim) == ("directional", 4, 0.5, 16)
+    assert make_pool("occupancy").n == 12
+    for name in POOL_TYPES[3:]:
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item [23]"):
+            make_pool(name)
+    with pytest.raises(ValueError):
+        make_pool("grid")

@@ -9,7 +9,9 @@ not copied.  Nothing in this package imports ``jax``.
 Ported so far: the serving path of the D-LSTM (directional grid pooling,
 ``LSTM`` autoregressive rollout, batched prediction, the TrajNet++ evaluator
 CLI), with the fused D-LSTM step as a hand-written CUDA kernel
-(``ops/cuda/fused_step.py``, ``csrc/fused_step.cu``).
+(``ops/cuda/fused_step.py``, ``csrc/fused_step.cu``), and its training path
+(teacher forcing, ``losses``, Adam, the ``trainers.lstm`` CLI), whose steps
+run the kernel's grid stage under autograd.
 """
 
 __version__ = "0.1.0"

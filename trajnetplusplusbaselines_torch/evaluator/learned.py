@@ -53,12 +53,13 @@ class BatchedPredictor:
             packed = batching.pack_scenes(
                 [prepared[i][0] for i in chunk], bucket=bucket, pad_scenes_to=bucket_batch
             )
-            _, pred, valid = self.predictor.model.forward(
-                self._device_params,
-                torch.from_numpy(packed.xy).to(self.device),
-                torch.from_numpy(packed.mask).to(self.device),
-                n_predict=n_predict,
-            )
+            with torch.no_grad():
+                _, pred, valid = self.predictor.model.forward(
+                    self._device_params,
+                    torch.from_numpy(packed.xy).to(self.device),
+                    torch.from_numpy(packed.mask).to(self.device),
+                    n_predict=n_predict,
+                )
             out = batching.mask_to_nan(pred.cpu().numpy(), valid.cpu().numpy())
 
             for s, i in enumerate(chunk):

@@ -1,9 +1,8 @@
 """LSTM trajectory forecaster: the autoregressive rollout, step by step.
 
-Port of ``trajnetplusplusbaselines_tpu/models/lstm.py`` for serving
-(``init_params``, ``init_carry``, ``step``, ``encode``, autoregressive
-``decode``, ``forward(n_predict=...)`` and ``LSTMPredictor.__call__``).
-Teacher forcing and training are not ported yet.
+Port of ``trajnetplusplusbaselines_tpu/models/lstm.py`` (``init_params``,
+``init_carry``, ``step``, ``encode``, ``decode`` autoregressive or teacher
+forced, ``forward`` and ``LSTMPredictor.__call__``).
 
 Shapes: observed [T, S, A, 2]; masks [T, S, A] bool; outputs (rel_pred
 [T', S, A, 5], pred [T', S, A, 2], valid [T', S, A]) with T' = (T_obs - 1) +
@@ -12,10 +11,14 @@ prediction window.  A rollout of 9 observed and 12 predicted frames is 19
 serial steps: 8 encoder transitions and 11 decoder steps.
 
 The step of a goal-free directional ``one_layer`` grid model (the D-LSTM) is
-the fused step of ``ops/cuda/fused_step.py``: one kernel launch on the card,
-its plain version on the CPU.  Other configurations (vanilla, occupancy) run
-the same plain step (``lstm_step_plain``) around their own pool on either
-device.  The encoder pools per step:
+the fused step of ``ops/cuda/fused_step.py`` (one kernel launch on the card,
+its plain version on the CPU) where autograd does not record it.  Where it
+does (training), the step is ``grid_dlstm_step``: the kernel's grid stage,
+which needs no gradient, then the grid embedding and ``lstm_step_plain``
+under autograd.  Other configurations (vanilla, occupancy) run the same plain
+step (``lstm_step_plain``) around their own pool on either device.  Whether
+autograd records is the caller's choice: serving and validation call
+``forward`` under ``torch.no_grad()``.  The encoder pools per step:
 the JAX package's observation-phase fold is an exact regrouping of the same
 per-step values (``tests/test_static_pool.py``) made for the TPU.
 """
@@ -26,8 +29,10 @@ import torch
 
 from ..ops.core import init_lstm_cell
 from ..ops.cuda.fused_step import (
+    autograd_records,
     check_weights,
     fused_dlstm_step,
+    grid_dlstm_step,
     lstm_step_plain,
     weights_from_params,
 )
@@ -101,7 +106,9 @@ class LSTM:
             weights = weights_from_params(params, cell_name)
         pool = self.pool
         if self.fused:
-            h, c, normal, mask = fused_dlstm_step(
+            step = (grid_dlstm_step if autograd_records(carry.h, carry.c, *weights.values())
+                    else fused_dlstm_step)
+            h, c, normal, mask = step(
                 obs1, obs2, present1, present2, carry.h, carry.c, weights,
                 n=pool.n, cell_side=pool.cell_side, constant=pool.constant,
             )
@@ -133,43 +140,60 @@ class LSTM:
 
     # --------------------------------------------------------------- decoder
     def decode(self, params, carry, pos_a, valid_a, pos_b, valid_b, n_steps: int,
-               weights=None):
-        """Autoregress the decoder for n_steps from the last two positions.
+               weights=None, truth=None, truth_mask=None):
+        """Run the decoder for n_steps from the last two positions.
+
+        truth / truth_mask: [n_steps + 1, S, A, ...] ground-truth chain
+        starting at the last observed frame (teacher forcing); None for full
+        autoregression.  The primary (agent 0) always reads the model's own
+        detached position, and in autoregression every agent does.
 
         Returns (carry, normals, masks, positions), each a list of n_steps
         per-step tensors."""
         normals, masks, positions = [], [], []
-        for _ in range(n_steps):
-            carry, normal, mask = self.step(
-                params, "decoder", carry, pos_a, pos_b, valid_a, valid_b, weights
-            )
-            new_pos = (pos_b + normal[..., :2]) * mask[..., None]
+        for k in range(n_steps):
+            if truth is not None:
+                obs1, p1 = _set_primary(truth[k], truth_mask[k], pos_a, valid_a)
+                obs2, p2 = _set_primary(truth[k + 1], truth_mask[k + 1], pos_b, valid_b)
+            else:
+                obs1, p1, obs2, p2 = pos_a.detach(), valid_a, pos_b.detach(), valid_b
+            carry, normal, mask = self.step(params, "decoder", carry, obs1, obs2, p1, p2,
+                                            weights)
+            new_pos = (obs2 + normal[..., :2]) * mask[..., None]
             normals.append(normal)
             masks.append(mask)
             positions.append(new_pos)
-            pos_a, valid_a, pos_b, valid_b = pos_b, valid_b, new_pos, mask
+            pos_a, valid_a, pos_b, valid_b = obs2, p2, new_pos, mask
         return carry, normals, masks, positions
 
     # --------------------------------------------------------------- forward
-    @torch.no_grad()
     def forward(self, params: Dict, observed, observed_mask, prediction_truth=None,
                 prediction_truth_mask=None, n_predict: Optional[int] = None):
-        """Full autoregressive rollout on the device and dtype of ``params``.
+        """Full rollout on the device and dtype of ``params``.
+
+        prediction_truth(+mask): [pred_length - 1, S, A, 2] future frames for
+        teacher forcing (training), or None with n_predict set (testing).
+        Autograd records it unless the caller turns it off.
 
         Returns (rel_pred [T', S, A, 5], pred [T', S, A, 2], valid [T', S, A]).
         """
-        if prediction_truth is not None or prediction_truth_mask is not None:
-            raise NotImplementedError("teacher forcing is not ported yet")
-        if n_predict is None or n_predict < 1:
+        teacher = prediction_truth is not None
+        if teacher == (n_predict is not None) or teacher != (prediction_truth_mask is not None):
+            raise ValueError("forward needs prediction_truth and its mask, or n_predict")
+        if not teacher and n_predict < 1:
             raise ValueError("forward needs n_predict >= 1")
         ref = params["encoder"]["w_ih"]
-        observed = torch.as_tensor(observed).to(device=ref.device, dtype=ref.dtype).contiguous()
-        observed_mask = torch.as_tensor(observed_mask).to(device=ref.device,
-                                                          dtype=torch.bool).contiguous()
+
+        def place(x, dtype):
+            return torch.as_tensor(x).to(device=ref.device, dtype=dtype).contiguous()
+
+        observed = place(observed, ref.dtype)
+        observed_mask = place(observed_mask, torch.bool)
         s, a = observed.shape[1], observed.shape[2]
         carry = self.init_carry(s, a, device=ref.device, dtype=ref.dtype)
         weights = {cell: weights_from_params(params, cell) for cell in ("encoder", "decoder")}
-        if self.fused and ref.device.type == "cuda":
+        if (self.fused and ref.device.type == "cuda"
+                and not autograd_records(*weights["decoder"].values())):
             # checked against the kernel once here, not at each of its launches
             weights = {cell: check_weights(w, ref.device) for cell, w in weights.items()}
 
@@ -179,7 +203,8 @@ class LSTM:
 
         # the decoder starts from the last observed frame for every
         # neighbour; only the primary reads the model's own positions[-2]
-        # (with a 2-frame observation the observation stands in for it)
+        # (with a 2-frame observation the observation stands in for it), in
+        # both teacher-forced and autoregressive modes
         if observed.shape[0] == 2:
             prim_a, prim_valid_a = observed[-1][:, 0], observed_mask[-1][:, 0]
         else:
@@ -189,14 +214,29 @@ class LSTM:
         valid_a = observed_mask[-1].clone()
         valid_a[:, 0] = prim_valid_a
 
+        truth = truth_mask = None
+        if teacher:
+            truth = torch.cat([observed[-1:], place(prediction_truth, ref.dtype)])
+            truth_mask = torch.cat([observed_mask[-1:], place(prediction_truth_mask, torch.bool)])
+            n_predict = truth.shape[0]
         carry, dec_normals, dec_masks, dec_positions = self.decode(
             params, carry, pos_a, valid_a, enc_positions[-1], enc_masks[-1],
-            n_predict - 1, weights["decoder"],
+            n_predict - 1, weights["decoder"], truth, truth_mask,
         )
         rel_pred = torch.stack(enc_normals + dec_normals)
         pred = torch.stack(enc_positions + dec_positions)
         valid = torch.stack(enc_masks + dec_masks)
         return rel_pred, pred, valid
+
+
+def _set_primary(gt_xy, gt_mask, own_xy, own_mask):
+    """Ground truth at one frame ``[S, A, ...]`` with the primary's lane
+    replaced by the model's own detached position and its validity."""
+    xy = gt_xy.clone()
+    xy[:, 0] = own_xy[:, 0].detach()
+    mask = gt_mask.clone()
+    mask[:, 0] = own_mask[:, 0]
+    return xy, mask
 
 
 class LSTMPredictor:
@@ -227,10 +267,11 @@ class LSTMPredictor:
             xy, rotation, center = augmentation.center_scene(xy, obs_length)
 
         packed = batching.pack_scenes([xy[start_length:obs_length]])
-        _, pred, valid = self.model.forward(
-            self.params, torch.from_numpy(packed.xy), torch.from_numpy(packed.mask),
-            n_predict=n_predict,
-        )
+        with torch.no_grad():
+            _, pred, valid = self.model.forward(
+                self.params, torch.from_numpy(packed.xy), torch.from_numpy(packed.mask),
+                n_predict=n_predict,
+            )
         output = batching.mask_to_nan(pred.cpu().numpy(), valid.cpu().numpy())
         output = output[:, 0, : xy.shape[1]]  # [T', A, 2]
         if normalize:

@@ -14,6 +14,13 @@ Layout is scene-major ``[S, A, F]`` contiguous, as in ``models/lstm.py``.
 - ``fused_dlstm_step`` / ``directional_grid`` take tensors on the card to the
   kernel, and tensors on the CPU to the plain version.  A tensor on the card
   launches the kernel or raises; there is no fallback.
+- Neither kernel has a backward: the JAX package has no backward kernel to
+  port, and the grid needs none (its positions are data or detached).  So
+  ``fused_dlstm_step`` raises where autograd would record it
+  (``autograd_records``), and ``directional_grid`` raises on positions that
+  require grad.  A training step goes through ``grid_dlstm_step``: the
+  kernel's grid stage, then the grid embedding and ``lstm_step_plain`` under
+  autograd.  ``fused_dlstm_step_plain`` is the same body with the plain grid.
 - ``fused_dlstm_step_plain`` / ``directional_grid_plain`` are the plain
   PyTorch versions, built from the port's ops (``ops/core.py``,
   ``ops/embeddings.py``, ``ops/pooling/grid.py``).  ``lstm_step_plain`` is
@@ -55,6 +62,13 @@ def weights_from_params(params: Dict, cell: str = "decoder") -> Dict:
     return weights
 
 
+def autograd_records(*tensors) -> bool:
+    """True when autograd would record an op on ``tensors``: grad mode is on
+    and one of them requires grad.  The model's one switch between the fused
+    step and ``grid_dlstm_step``."""
+    return torch.is_grad_enabled() and any(getattr(t, "requires_grad", False) for t in tensors)
+
+
 # ------------------------------------------------------------ plain versions
 def lstm_step_plain(weights: Mapping, obs1, obs2, present1, present2, h, c,
                     pooled: Optional[torch.Tensor] = None):
@@ -89,8 +103,20 @@ def fused_dlstm_step_plain(obs1, obs2, present1, present2, h, c, weights: Mappin
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One D-LSTM step; returns (h' [S,A,H], c' [S,A,H], normal [S,A,5],
     mask [S,A] bool)."""
-    grid = directional_grid_plain(obs1, obs2, present1, present2, n=n,
-                                  cell_side=cell_side, constant=constant)
+    return grid_dlstm_step(obs1, obs2, present1, present2, h, c, weights, n=n,
+                           cell_side=cell_side, constant=constant,
+                           grid_fn=directional_grid_plain)
+
+
+def grid_dlstm_step(obs1, obs2, present1, present2, h, c, weights: Mapping, *,
+                    n=12, cell_side=0.6, constant=0.0, grid_fn=None):
+    """One D-LSTM step that autograd can differentiate: the directional grid
+    (``grid_fn``, by default ``directional_grid``: the kernel's grid stage on
+    the card, no gradient), then ``relu(grid @ W_grid + b)`` and
+    ``lstm_step_plain`` in PyTorch.  Returns what ``fused_dlstm_step``
+    returns."""
+    grid = (grid_fn or directional_grid)(obs1, obs2, present1, present2, n=n,
+                                         cell_side=cell_side, constant=constant)
     pooled = mlp([{"w": weights["w_grid"], "b": weights["b_grid"]}], grid)
     return lstm_step_plain(weights, obs1, obs2, present1, present2, h, c, pooled)
 
@@ -179,7 +205,10 @@ def check_weights(weights: Mapping, device) -> KernelWeights:
 def directional_grid(obs1, obs2, present1, present2, *, n=12, cell_side=0.6,
                      constant=0.0) -> torch.Tensor:
     """The flattened directional grid ``[S, A, 2*n*n]``: the kernel's grid
-    stage on the card, the plain version on the CPU."""
+    stage on the card, the plain version on the CPU.  It has no gradient, so
+    positions that require grad raise."""
+    if obs1.requires_grad or obs2.requires_grad:
+        raise ValueError("directional_grid has no gradient: pass detached positions")
     if obs2.device.type == "cpu":
         return directional_grid_plain(obs1, obs2, present1, present2, n=n,
                                       cell_side=cell_side, constant=constant)
@@ -209,7 +238,11 @@ def fused_dlstm_step(obs1, obs2, present1, present2, h, c, weights: Mapping, *, 
     """One fused D-LSTM step; returns (h' [S,A,H], c' [S,A,H], normal
     [S,A,5], mask [S,A] bool).  The kernel on the card, the plain version on
     the CPU.  ``weights`` made by ``check_weights`` for this device are
-    taken as they are; any other mapping is checked here."""
+    taken as they are; any other mapping is checked here.  The step has no
+    backward, so it raises where autograd would record it."""
+    if autograd_records(obs1, obs2, h, c, *weights.values()):
+        raise RuntimeError("fused_dlstm_step has no backward: run it under torch.no_grad(), "
+                           "or take grid_dlstm_step where autograd records")
     if obs2.device.type == "cpu":
         return fused_dlstm_step_plain(obs1, obs2, present1, present2, h, c, weights,
                                       n=n, cell_side=cell_side, constant=constant)

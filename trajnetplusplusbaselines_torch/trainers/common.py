@@ -1,0 +1,239 @@
+"""Shared trainer infrastructure: scenes, the device-resident epoch, logging,
+Adam and the StepLR schedule.
+
+Port of the host parts of ``trajnetplusplusbaselines_tpu/trainers/common.py``
+(that module imports optax, so it is reimplemented here, not imported):
+
+- ``SceneDataset``: scenes as NaN-padded arrays, ``drop_distant``-filtered
+  once at load;
+- ``ResidentDataset``: per (T, A-bucket) tensors on the device, with the JAX
+  package's ``epoch_plan``: the same bucket order and the same
+  ``rng.permutation`` calls, so an epoch visits the same batches;
+- ``bucket_batches``: the epoch runner's loop over one bucket's plan as a
+  Python loop, with rotation / neighbour-noise augmentation drawn on the
+  device from a ``torch.Generator``;
+- ``make_optimizer`` / ``clip_by_global_norm`` / ``set_lr``: optax's
+  ``clip_by_global_norm -> add_decayed_weights -> scale_by_adam ->
+  scale_by_learning_rate`` as a global-norm clip written to optax's formula
+  followed by ``torch.optim.Adam`` with coupled weight decay;
+- ``step_lr`` and the JSON logging that ``tools/plot_log.read_log`` reads.
+
+The lax-scan chunking, the compile cache and the mesh helpers exist only for
+the TPU toolchain and are not ported.
+"""
+
+import json
+import logging
+import socket
+import sys
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from trajnetplusplusbaselines_tpu.data import augmentation, batching
+from trajnetplusplusbaselines_tpu.data.reader import Reader
+
+NOISE_THRESH = 0.02  # --augment_noise: uniform noise bound in metres
+
+
+class SceneDataset:
+    """Preprocessed scenes held as arrays ``[T, n, 2]``, NaN where absent."""
+
+    def __init__(self, scenes, obs_length: int, normalize_scene: bool):
+        self.xys: List[np.ndarray] = []
+        for _filename, _scene_id, paths in scenes:
+            xy, _ = augmentation.drop_distant(Reader.paths_to_xy(paths))
+            if normalize_scene:
+                xy, _, _ = augmentation.center_scene(xy, obs_length)
+            self.xys.append(xy.astype(np.float64))
+
+    def __len__(self):
+        return len(self.xys)
+
+
+class ResidentDataset:
+    """Scenes resident on ``device``, one dense tensor set per (T, A-bucket):
+    ``xs [N, T, A, 2]`` float32, ``mask [N, T, A]`` bool, ``num_agents [N]``.
+    Per epoch the host makes only the shuffled batch plan."""
+
+    def __init__(self, dataset: SceneDataset, device,
+                 buckets: Sequence[int] = batching.DEFAULT_AGENT_BUCKETS):
+        by_key = {}
+        for i, xy in enumerate(dataset.xys):
+            t, n = xy.shape[0], xy.shape[1]
+            a = max(batching.agent_bucket(n, buckets), n)
+            by_key.setdefault((t, a), []).append(i)
+
+        self.buckets = {}
+        for (t, a), ids in sorted(by_key.items()):
+            xs = np.zeros((len(ids), t, a, 2), dtype=np.float32)
+            mask = np.zeros((len(ids), t, a), dtype=bool)
+            num_agents = np.zeros((len(ids),), dtype=np.int64)
+            for j, i in enumerate(ids):
+                xy = dataset.xys[i]
+                n = xy.shape[1]
+                xs[j, :, :n], mask[j, :, :n] = batching.nan_to_mask(xy)
+                num_agents[j] = n
+            self.buckets[(t, a)] = {
+                "xs": torch.from_numpy(xs).to(device),
+                "mask": torch.from_numpy(mask).to(device),
+                "num_agents": torch.from_numpy(num_agents).to(device),
+            }
+
+    def epoch_plan(self, batch_size: int, rng: np.random.Generator,
+                   shuffle: bool = True) -> Dict[Tuple[int, int], Tuple[np.ndarray, np.ndarray]]:
+        """Per bucket: (idx [nb, S] int64, valid [nb, S] bool).  The last
+        batch of a bucket is padded with scene 0, switched off in ``valid``."""
+        plan = {}
+        for key, data in self.buckets.items():
+            n = int(data["num_agents"].shape[0])
+            order = rng.permutation(n) if shuffle else np.arange(n)
+            nb = -(-n // batch_size)
+            idx = np.zeros((nb * batch_size,), dtype=np.int64)
+            idx[:n] = order
+            valid = np.arange(nb * batch_size) < n
+            plan[key] = (idx.reshape(nb, batch_size), valid.reshape(nb, batch_size))
+        return plan
+
+
+def rotate(xy: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
+    """xy [..., 2] rotated by theta (``augmentation.theta_rotation``)."""
+    ct, st = torch.cos(theta), torch.sin(theta)
+    x, y = xy[..., 0], xy[..., 1]
+    return torch.stack([x * ct - y * st, x * st + y * ct], dim=-1)
+
+
+def bucket_batches(data: Dict[str, torch.Tensor], idx: np.ndarray, valid: np.ndarray, *,
+                   augment: bool = False, augment_noise: bool = False, obs_length: int = 9,
+                   generator: Optional[torch.Generator] = None
+                   ) -> Iterator[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """Yield ``(xy [T, S, A, 2], mask [T, S, A], scene_mask [S])`` for each
+    batch of one bucket's plan, on the bucket's device.
+
+    Augmentation is drawn once for the whole bucket, as in the JAX epoch
+    runner: a uniform rotation of every scene and, with ``augment_noise``,
+    uniform noise in +-``NOISE_THRESH`` on the neighbours' observed frames.
+    Padded scenes keep scene 0's positions with every mask off."""
+    xs, mask, num_agents = data["xs"], data["mask"], data["num_agents"]
+    device = xs.device
+    if augment:
+        theta = torch.rand(xs.shape[0], generator=generator, device=device,
+                           dtype=xs.dtype) * (2.0 * np.pi)
+        xs = rotate(xs, theta[:, None, None])
+    if augment_noise:
+        noise = torch.rand(xs[:, :obs_length, 1:].shape, generator=generator, device=device,
+                           dtype=xs.dtype) * (2.0 * NOISE_THRESH) - NOISE_THRESH
+        xs = xs.clone()
+        xs[:, :obs_length, 1:] += noise
+    idx = torch.from_numpy(idx).to(device)
+    valid = torch.from_numpy(valid).to(device)
+    for i, v in zip(idx, valid):
+        xy = xs[i].transpose(0, 1).contiguous()
+        m = mask[i].transpose(0, 1) & v[None, :, None]
+        yield xy, m.contiguous(), (num_agents[i] > 0) & v
+
+
+# ------------------------------------------------------------------ optimizer
+def param_items(tree, prefix: Tuple = ()) -> List[Tuple[str, torch.Tensor]]:
+    """(path, leaf) of a nested params dict, in a fixed order; paths join
+    keys and list indices with "/" (``encoder/w_ih``, ``pool/embedding/0/w``)."""
+    if isinstance(tree, dict):
+        return [item for k in sorted(tree) for item in param_items(tree[k], prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [item for i, v in enumerate(tree) for item in param_items(v, prefix + (i,))]
+    return [("/".join(map(str, prefix)), tree)]
+
+
+def make_optimizer(leaves: Sequence[torch.Tensor], lr: float = 1e-3,
+                   weight_decay: float = 1e-4) -> torch.optim.Adam:
+    """Adam with coupled weight decay (``grad + wd * p``), as optax's
+    ``add_decayed_weights -> scale_by_adam``; the learning rate is set per
+    epoch with ``set_lr``."""
+    return torch.optim.Adam(list(leaves), lr=lr, weight_decay=weight_decay)
+
+
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
+    """optax's ``clip_by_global_norm``: every gradient becomes
+    ``(g / norm) * max_norm`` where the global norm is at least ``max_norm``.
+    (``torch.nn.utils.clip_grad_norm_`` divides by ``norm + 1e-6`` instead.)
+    Decided on the device, with no host sync.  Returns new tensors: autograd
+    may hand one tensor to two leaves (``b_ih`` and ``b_hh`` reach the loss
+    through their sum), so scaling in place would scale it twice."""
+    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    keep = norm < max_norm
+    return [torch.where(keep, g, (g / norm) * max_norm) for g in grads]
+
+
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+
+
+def step_lr(lr: float, step_size: Optional[int], gamma: float = 0.1):
+    """StepLR schedule over epochs: lr * gamma^(epoch // step_size)."""
+
+    def schedule(epoch: int) -> float:
+        if not step_size:
+            return lr
+        return lr * (gamma ** (epoch // step_size))
+
+    return schedule
+
+
+def adam_state_to_numpy(optimizer: torch.optim.Adam, paths: Sequence[str]) -> Dict:
+    """The Adam moments as numpy, keyed by parameter path:
+    ``{path: {"step", "exp_avg", "exp_avg_sq"}}`` (paths in the optimizer's
+    parameter order).  A parameter not stepped yet has no entry."""
+    state = optimizer.state_dict()["state"]
+    return {path: {"step": float(state[i]["step"]),
+                   "exp_avg": state[i]["exp_avg"].detach().cpu().numpy(),
+                   "exp_avg_sq": state[i]["exp_avg_sq"].detach().cpu().numpy()}
+            for i, path in enumerate(paths) if i in state}
+
+
+def adam_state_from_numpy(optimizer: torch.optim.Adam, paths: Sequence[str],
+                          saved: Dict) -> None:
+    """Restore moments written by ``adam_state_to_numpy``; a path of the
+    optimizer that ``saved`` lacks raises."""
+    missing = [p for p in paths if p not in saved]
+    if missing:
+        raise KeyError(f"the saved optimizer state has no entry for {missing}")
+    sd = optimizer.state_dict()
+    sd["state"] = {i: {"step": torch.tensor(saved[p]["step"], dtype=torch.float32),
+                       "exp_avg": torch.from_numpy(saved[p]["exp_avg"]),
+                       "exp_avg_sq": torch.from_numpy(saved[p]["exp_avg_sq"])}
+                   for i, p in enumerate(paths)}
+    optimizer.load_state_dict(sd)
+
+
+# -------------------------------------------------------------------- logging
+class JsonFormatter(logging.Formatter):
+    """Single-line JSON records."""
+
+    def format(self, record):
+        payload = {}
+        if isinstance(record.msg, dict):
+            payload.update(record.msg)
+        else:
+            payload["message"] = record.getMessage()
+        payload.update({"levelname": record.levelname, "name": record.name,
+                        "asctime": self.formatTime(record)})
+        return json.dumps(payload)
+
+
+def setup_logging(output: str, append: bool = False) -> None:
+    file_handler = logging.FileHandler(output + ".log", mode="a" if append else "w")
+    file_handler.setFormatter(JsonFormatter())
+    stdout_handler = logging.StreamHandler(sys.stdout)
+    logging.basicConfig(level=logging.INFO, handlers=[stdout_handler, file_handler], force=True)
+
+
+def log_process_record(args, version: str) -> None:
+    logging.info({
+        "type": "process",
+        "argv": sys.argv,
+        "args": vars(args),
+        "version": version,
+        "hostname": socket.gethostname(),
+    })

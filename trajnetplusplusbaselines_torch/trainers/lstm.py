@@ -1,0 +1,395 @@
+"""Command-line LSTM trainer.
+
+Port of ``trajnetplusplusbaselines_tpu/trainers/lstm.py``: the same flags
+and defaults, output naming (``OUTPUT_BLOCK/<path>/lstm_<type>_<o>.pkl``),
+JSON log records (process / train / train-epoch / val-epoch), checkpoints
+every ``save_every`` epochs and the three restore modes, plus ``--device``
+(default ``cuda``; it raises where no card is present, and never trains on
+another device than the one asked for).  JAX's ``--cpu`` is ``--device cpu``.
+
+One train step is a teacher-forced ``LSTM.forward`` under autograd, the
+primary-only loss (x batch size, with an optional collision term), its
+gradients, the optional global-norm clip and an Adam update.  The epoch
+visits the buckets of ``ResidentDataset.epoch_plan``, batch by batch, with
+the losses kept on the device and read once at the end of the epoch.  On
+the card a D-LSTM step launches the grid stage of the fused kernel
+(``ops/cuda/fused_step.directional_grid``) once per recurrence step, 19
+times per train step; validation records no autograd, so its teacher-forced
+pass and its free rollout launch the whole fused step.
+
+Not ported, and refused with the ROADMAP item that ports them: ``--goals``,
+``--obs_dropout``, ``--bf16``, ``--remat``, ``--dp`` / ``--tp`` above 1, the
+pool types other than vanilla, occupancy and directional.  ``--orbax`` is
+refused for good (ROADMAP, "Do not port").
+
+Usage:
+    python -m trajnetplusplusbaselines_torch.trainers.lstm --path trajdata \
+        --type directional --epochs 25 --device cuda
+"""
+
+import argparse
+import logging
+import os
+import random
+import time
+
+import numpy as np
+import torch
+
+from trajnetplusplusbaselines_tpu.data.load import prepare_data
+
+from .. import __version__ as VERSION
+from ..losses import collision_loss, l2_loss, prediction_loss
+from ..models.lstm import LSTM, LSTMPredictor
+from ..ops.pooling import POOL_TYPES, make_pool
+from ..utils import checkpoint as ckpt
+from ..utils.convert import params_from_jax, params_to_numpy
+from .common import (
+    ResidentDataset,
+    SceneDataset,
+    adam_state_from_numpy,
+    adam_state_to_numpy,
+    bucket_batches,
+    clip_by_global_norm,
+    log_process_record,
+    make_optimizer,
+    param_items,
+    set_lr,
+    setup_logging,
+    step_lr,
+)
+
+
+class Trainer:
+    """Trains an ``LSTM`` whose params (a nested dict of tensors in the JAX
+    layout) live on one device; the leaves are trained in place."""
+
+    def __init__(self, model, params, lr_schedule, criterion="pred", batch_size=8,
+                 obs_length=9, pred_length=12, augment=True, save_every=1, start_length=0,
+                 augment_noise=False, val_flag=True, col_wt=0.0, col_distance=0.2, seed=42,
+                 clip_grad=None):
+        self.model = model
+        self.params = params
+        self.paths, self.leaves = zip(*param_items(params))
+        for leaf in self.leaves:
+            leaf.requires_grad_()
+        self.device = self.leaves[0].device
+        self.optimizer = make_optimizer(self.leaves)
+        self.clip_grad = clip_grad
+        self.lr_schedule = lr_schedule
+        self.criterion = criterion
+        self.log = logging.getLogger(self.__class__.__name__)
+
+        self.batch_size = batch_size
+        self.obs_length = obs_length
+        self.pred_length = pred_length
+        self.seq_length = obs_length + pred_length
+        self.augment = augment
+        self.augment_noise = augment_noise
+        self.save_every = save_every
+        self.start_length = start_length
+        self.val_flag = val_flag
+        self.col_wt = col_wt
+        self.col_distance = col_distance
+
+        self.rng = np.random.default_rng(seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
+        self._resident = {}
+
+    # ------------------------------------------------------------------ step
+    def _loss_from_outputs(self, rel, pred, valid, xy, mask, scene_mask):
+        """Primary-only criterion (+ optional collision term), x batch size."""
+        targets = (xy[self.obs_length:self.seq_length, :, 0]
+                   - xy[self.obs_length - 1:self.seq_length - 1, :, 0])  # [pred, S, 2]
+        primary_rel = rel[-self.pred_length:, :, 0]  # [pred, S, 5]
+        if self.criterion == "L2":
+            loss = l2_loss(primary_rel, targets, scene_mask)
+        else:
+            loss = prediction_loss(primary_rel, targets, scene_mask)
+
+        if self.col_wt:
+            # the primary's own predictions in the data's dtype, as JAX's
+            # ``.at[].set`` casts them
+            positions = xy[-self.pred_length:].clone()
+            positions[:, :, 0] = pred[-self.pred_length:, :, 0]
+            position_mask = mask[-self.pred_length:].clone()
+            position_mask[:, :, 0] = valid[-self.pred_length:, :, 0]
+            loss = loss + collision_loss(positions, position_mask, scene_mask, self.col_wt,
+                                         self.col_distance)
+        return loss * self.batch_size
+
+    def _forward_train(self, params, xy, mask, start_length):
+        return self.model.forward(
+            params, xy[start_length:self.obs_length], mask[start_length:self.obs_length],
+            prediction_truth=xy[self.obs_length:self.seq_length - 1],
+            prediction_truth_mask=mask[self.obs_length:self.seq_length - 1],
+        )
+
+    def loss_and_grads(self, xy, mask, scene_mask):
+        """The teacher-forced loss of one batch and its gradient for every
+        leaf (zeros for a leaf the loss does not reach, as in JAX)."""
+        rel, pred, valid = self._forward_train(self.params, xy, mask, self.start_length)
+        loss = self._loss_from_outputs(rel, pred, valid, xy, mask, scene_mask)
+        grads = torch.autograd.grad(loss, self.leaves, materialize_grads=True)
+        return loss.detach(), grads
+
+    def train_step(self, xy, mask, scene_mask):
+        """One optimizer step on one batch; returns the loss, on the device."""
+        loss, grads = self.loss_and_grads(xy, mask, scene_mask)
+        if self.clip_grad:
+            grads = clip_by_global_norm(grads, self.clip_grad)
+        for leaf, grad in zip(self.leaves, grads):
+            leaf.grad = grad
+        self.optimizer.step()
+        return loss
+
+    # ----------------------------------------------------------------- loops
+    def _get_resident(self, scenes):
+        # keyed by id, with a strong reference so a freed object's reused
+        # address never aliases a stale entry
+        if id(scenes) not in self._resident:
+            self._resident[id(scenes)] = (scenes, ResidentDataset(scenes, self.device))
+        return self._resident[id(scenes)][1]
+
+    def _batches(self, resident, plan, augment=False, augment_noise=False):
+        for key, (idx, valid) in plan.items():
+            yield from bucket_batches(resident.buckets[key], idx, valid, augment=augment,
+                                      augment_noise=augment_noise,
+                                      obs_length=self.obs_length, generator=self.generator)
+
+    def loop(self, train_scenes: SceneDataset, val_scenes, out: str, epochs=25,
+             start_epoch=0):
+        for epoch in range(start_epoch, epochs):
+            if epoch % self.save_every == 0:
+                self.save_checkpoint(epoch, out + f".epoch{epoch}")
+            self.train(train_scenes, epoch)
+            if self.val_flag and val_scenes is not None:
+                self.val(val_scenes, epoch)
+        self.save_checkpoint(epochs, out + f".epoch{epochs}")
+        self.save_checkpoint(epochs, out)
+
+    def save_checkpoint(self, epoch: int, filename: str):
+        state = {
+            "epoch": epoch,
+            "params": params_to_numpy(self.params),
+            "opt_state_hyper": {"learning_rate": float(self.lr_schedule(max(epoch - 1, 0)))},
+            "opt_state": adam_state_to_numpy(self.optimizer, self.paths),
+        }
+        ckpt.save_predictor(LSTMPredictor(self.model, self.params), filename, state)
+
+    def get_lr(self, epoch: int) -> float:
+        return float(self.lr_schedule(epoch))
+
+    def train(self, scenes: SceneDataset, epoch: int):
+        start_time = time.time()
+        print("epoch", epoch)
+        lr = self.get_lr(epoch)
+        set_lr(self.optimizer, lr)
+
+        resident = self._get_resident(scenes)
+        t0 = time.time()
+        plan = resident.epoch_plan(self.batch_size, self.rng, shuffle=True)
+        data_time = time.time() - t0
+        losses = [self.train_step(xy, mask, scene) for xy, mask, scene in
+                  self._batches(resident, plan, self.augment, self.augment_noise)]
+        losses = torch.stack(losses).cpu().numpy() if losses else np.zeros(0)  # sync point
+        n_batches = len(losses)
+        per_batch = (time.time() - start_time) / max(n_batches, 1)
+
+        for b in range(10, n_batches + 1, 10):
+            self.log.info({
+                "type": "train",
+                "epoch": epoch, "batch": b * self.batch_size,
+                "n_batches": len(scenes),
+                "time": round(per_batch, 4),
+                "data_time": round(data_time / max(n_batches, 1), 6),
+                "lr": lr,
+                "loss": round(float(losses[b - 1]), 3),
+            })
+        self.log.info({
+            "type": "train-epoch",
+            "epoch": epoch + 1,
+            "loss": round(float(losses.sum()) / max(len(scenes), 1), 5),
+            "time": round(time.time() - start_time, 1),
+        })
+
+    def val(self, scenes: SceneDataset, epoch: int):
+        eval_start = time.time()
+        resident = self._get_resident(scenes)
+        plan = resident.epoch_plan(self.batch_size, self.rng, shuffle=False)
+        sl = self.start_length
+        val_losses, test_losses = [], []
+        with torch.no_grad():
+            for xy, mask, scene in self._batches(resident, plan):
+                outputs = self._forward_train(self.params, xy, mask, sl)
+                val_losses.append(self._loss_from_outputs(*outputs, xy, mask, scene))
+                outputs = self.model.forward(self.params, xy[sl:self.obs_length],
+                                             mask[sl:self.obs_length],
+                                             n_predict=self.pred_length)
+                test_losses.append(self._loss_from_outputs(*outputs, xy, mask, scene))
+        val_loss = float(torch.stack(val_losses).sum()) if val_losses else 0.0
+        test_loss = float(torch.stack(test_losses).sum()) if test_losses else 0.0
+        self.log.info({
+            "type": "val-epoch",
+            "epoch": epoch + 1,
+            "loss": round(val_loss / max(len(scenes), 1), 3),
+            "test_loss": round(test_loss / max(len(scenes), 1), 3),
+            "time": round(time.time() - eval_start, 1),
+        })
+
+
+def add_arguments(parser, default_epochs=25):
+    parser.add_argument("--epochs", default=default_epochs, type=int)
+    parser.add_argument("--save_every", default=5, type=int)
+    parser.add_argument("--obs_length", default=9, type=int)
+    parser.add_argument("--pred_length", default=12, type=int)
+    parser.add_argument("--start_length", default=0, type=int)
+    parser.add_argument("--batch_size", default=8, type=int)
+    parser.add_argument("--lr", default=1e-3, type=float)
+    parser.add_argument("--clip_grad", default=None, type=float,
+                        help="optional global-norm gradient clip")
+    parser.add_argument("--step_size", default=10, type=int)
+    parser.add_argument("-o", "--output", default=None)
+    parser.add_argument("--path", default="trajdata", help="dataset name inside data_root")
+    parser.add_argument("--data_root", default="DATA_BLOCK", help="root holding <path>/train etc.")
+    parser.add_argument("--goals", action="store_true")
+    parser.add_argument("--loss", default="pred", choices=("L2", "pred"))
+    parser.add_argument("--type", default="vanilla", choices=POOL_TYPES)
+    parser.add_argument("--sample", default=1.0, type=float)
+    parser.add_argument("--seed", type=int, default=42)
+    parser.add_argument("--augment", action="store_true")
+    parser.add_argument("--normalize_scene", action="store_true")
+    parser.add_argument("--augment_noise", action="store_true")
+    parser.add_argument("--obs_dropout", action="store_true")
+    parser.add_argument("--orbax", action="store_true", help="not ported: refused")
+    parser.add_argument("--bf16", action="store_true", help="not ported yet: refused")
+    parser.add_argument("--remat", action="store_true", help="not ported yet: refused")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to train on (cuda, cuda:N or cpu)")
+
+    parallel = parser.add_argument_group("parallelism")
+    parallel.add_argument("--dp", type=int, default=1, help="not ported yet: only 1")
+    parallel.add_argument("--tp", type=int, default=1, help="not ported yet: only 1")
+
+    pretrain = parser.add_argument_group("pretraining")
+    pretrain.add_argument("--load-state", default=None)
+    pretrain.add_argument("--load-full-state", default=None)
+    pretrain.add_argument("--nonstrict-load-state", default=None)
+
+    hyper = parser.add_argument_group("hyperparameters")
+    hyper.add_argument("--hidden-dim", dest="hidden_dim", type=int, default=128)
+    hyper.add_argument("--coordinate-embedding-dim", dest="coordinate_embedding_dim",
+                       type=int, default=64)
+    hyper.add_argument("--pool_dim", type=int, default=256)
+    hyper.add_argument("--goal_dim", type=int, default=64)
+    hyper.add_argument("--cell_side", type=float, default=0.6)
+    hyper.add_argument("--n", type=int, default=12)
+    hyper.add_argument("--layer_dims", type=int, nargs="*", default=[512])
+    hyper.add_argument("--embedding_arch", default="one_layer")
+    hyper.add_argument("--pool_constant", default=0, type=int)
+    hyper.add_argument("--norm_pool", action="store_true")
+    hyper.add_argument("--front", action="store_true")
+    hyper.add_argument("--latent_dim", type=int, default=16)
+    hyper.add_argument("--norm", default=0, type=int)
+    hyper.add_argument("--no_vel", action="store_true")
+    hyper.add_argument("--spatial_dim", type=int, default=32)
+    hyper.add_argument("--vel_dim", type=int, default=32)
+    hyper.add_argument("--attn_logit_cap", type=float, default=None)
+    hyper.add_argument("--neigh", default=4, type=int)
+    hyper.add_argument("--mp_iters", default=5, type=int)
+    hyper.add_argument("--col_wt", default=0.0, type=float)
+    hyper.add_argument("--col_distance", default=0.2, type=float)
+    return parser
+
+
+def refuse_unported(args) -> None:
+    """Raise on a flag whose path the port does not have, before anything runs."""
+    refused = [
+        (args.goals, "--goals is not ported yet (ROADMAP Queue 1 item 2, the goal_flag path)"),
+        (args.obs_dropout, "--obs_dropout is not ported yet (ROADMAP Queue 1 item 11)"),
+        (args.bf16 or args.remat, "--bf16 and --remat are not ported yet (ROADMAP Queue 1 item 7)"),
+        (args.dp * args.tp > 1, "--dp / --tp above 1 are not ported yet (ROADMAP Queue 1 item 10)"),
+        (args.orbax, "--orbax is not ported: the port writes pickle sidecars only "
+                     "(ROADMAP, 'Do not port')"),
+    ]
+    for flag, message in refused:
+        if flag:
+            raise NotImplementedError(message)
+
+
+def main(epochs=25, argv=None):
+    """Train from the command line; returns the ``Trainer``."""
+    parser = argparse.ArgumentParser()
+    add_arguments(parser, epochs)
+    args = parser.parse_args(argv)
+    refuse_unported(args)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {args.device} asked for, but CUDA is not available")
+    pool = make_pool(args.type, args)  # raises on an unported pool type
+
+    random.seed(args.seed)
+    np.random.seed(args.seed)
+
+    os.makedirs(f"OUTPUT_BLOCK/{args.path}", exist_ok=True)
+    args.output = f"OUTPUT_BLOCK/{args.path}/lstm_{args.type}_{args.output}.pkl"
+
+    setup_logging(args.output, append=bool(args.load_full_state))
+    log_process_record(args, VERSION)
+
+    args.load_state_strict = True
+    if args.nonstrict_load_state:
+        args.load_state = args.nonstrict_load_state
+        args.load_state_strict = False
+    if args.load_full_state:
+        args.load_state = args.load_full_state
+
+    data_path = os.path.join(args.data_root, args.path)
+    train_scenes, _, _ = prepare_data(data_path, subset="/train/", sample=args.sample,
+                                      goals=False)
+    val_scenes, _, val_flag = prepare_data(data_path, subset="/val/", sample=args.sample,
+                                           goals=False)
+
+    model = LSTM(pool=pool, embedding_dim=args.coordinate_embedding_dim,
+                 hidden_dim=args.hidden_dim, goal_dim=args.goal_dim)
+    params = model.init_params(torch.Generator().manual_seed(args.seed), device=device)
+
+    start_epoch = 0
+    state = None
+    if args.load_state:
+        print("Loading Model Dict")
+        state = ckpt.load_state(args.load_state)
+        if args.load_state_strict:
+            params = params_from_jax(state["params"], device=device)
+        else:
+            params, skipped = ckpt.merge_params_nonstrict(params, state["params"])
+            if skipped:
+                print("nonstrict load skipped:", skipped)
+
+    trainer = Trainer(
+        model, params, step_lr(args.lr, args.step_size), criterion=args.loss,
+        batch_size=args.batch_size, obs_length=args.obs_length,
+        pred_length=args.pred_length, augment=args.augment, save_every=args.save_every,
+        start_length=args.start_length, augment_noise=args.augment_noise,
+        val_flag=val_flag, col_wt=args.col_wt, col_distance=args.col_distance,
+        seed=args.seed, clip_grad=args.clip_grad,
+    )
+
+    if args.load_full_state:
+        print("Loading Optimizer Dict")
+        if not ckpt.is_port_opt_state(state["opt_state"]):
+            raise NotImplementedError(
+                "--load-full-state from a JAX sidecar (optax state) is not ported yet "
+                "(ROADMAP Queue 1 item 11); --load-state takes its weights")
+        adam_state_from_numpy(trainer.optimizer, trainer.paths, state["opt_state"])
+        start_epoch = state["epoch"]
+
+    train_ds = SceneDataset(train_scenes, args.obs_length, args.normalize_scene)
+    val_ds = (SceneDataset(val_scenes, args.obs_length, args.normalize_scene)
+              if val_scenes is not None else None)
+    trainer.loop(train_ds, val_ds, args.output, epochs=args.epochs, start_epoch=start_epoch)
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

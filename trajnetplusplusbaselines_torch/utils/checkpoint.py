@@ -1,16 +1,28 @@
-"""Predictor pickles, read and written without jax.
+"""Predictor pickles and training-state sidecars, read and written without jax.
 
 The JAX package's ``save_predictor`` writes ``{"predictor_class", "model",
 "params"}`` with the model's configuration object and numpy params
-(``trajnetplusplusbaselines_tpu/utils/checkpoint.py``).  ``load_predictor``
-reads that payload through an unpickler that maps the configuration classes
-of either package to plain stubs (unpickling restores ``__dict__`` and
-bypasses ``__init__``), then builds the port's model from the restored
-attributes.  Any other class, predictor or configuration raises.
-``save_predictor`` writes the same layout with the port's configuration.
+(``trajnetplusplusbaselines_tpu/utils/checkpoint.py``), and beside it the
+sidecar ``<out>.state``: ``{epoch, params, opt_state_hyper, opt_state}``.
+``load_predictor`` reads the predictor through an unpickler that maps the
+configuration classes of either package to plain stubs (unpickling restores
+``__dict__`` and bypasses ``__init__``), then builds the port's model from
+the restored attributes.  Any other class, predictor or configuration
+raises.  ``save_predictor`` writes the same layout with the port's
+configuration, and the sidecar when given a state.
+
+The port's sidecar holds numpy only; its ``opt_state`` is the torch Adam
+state keyed by parameter path (``trainers/common.adam_state_to_numpy``).  A
+JAX sidecar's ``opt_state`` is optax's state, a tree of NamedTuples:
+``load_state`` maps their classes to a tuple stub, with no optax import, so
+the weights of either package's sidecar load.
 """
 
 import pickle
+from typing import Any, Tuple
+
+import numpy as np
+import torch
 
 from ..models.lstm import LSTM, LSTMPredictor
 from ..ops.pooling.grid import GridBasedPooling
@@ -34,13 +46,28 @@ _CONFIG_CLASSES = {
 _NUMPY_NAMES = {"_reconstruct", "ndarray", "dtype", "scalar", "_frombuffer"}
 
 
+class OptaxState(tuple):
+    """Stands in for an optax state NamedTuple of a JAX sidecar: its fields,
+    in order, as a tuple."""
+
+    def __new__(cls, *fields):
+        return super().__new__(cls, fields)
+
+
 class _Unpickler(pickle.Unpickler):
     def find_class(self, module, name):
         if (module, name) in _CONFIG_CLASSES:
             return _CONFIG_CLASSES[(module, name)]
         if (module == "numpy" or module.startswith("numpy.")) and name in _NUMPY_NAMES:
             return super().find_class(module, name)
-        raise pickle.UnpicklingError(f"predictor pickle holds unsupported class {module}.{name}")
+        raise pickle.UnpicklingError(f"pickle holds unsupported class {module}.{name}")
+
+
+class _StateUnpickler(_Unpickler):
+    def find_class(self, module, name):
+        if module == "optax" or module.startswith("optax."):
+            return OptaxState
+        return super().find_class(module, name)
 
 
 def _pool_from_config(cfg):
@@ -81,7 +108,9 @@ def load_predictor(filename: str) -> LSTMPredictor:
     return LSTMPredictor(_model_from_config(payload["model"]), params_from_jax(payload["params"]))
 
 
-def save_predictor(predictor: LSTMPredictor, filename: str) -> None:
+def save_predictor(predictor: LSTMPredictor, filename: str, state=None) -> None:
+    """Write the predictor pickle and, given a training ``state`` (numpy
+    leaves), its sidecar ``filename + ".state"``."""
     payload = {
         "predictor_class": type(predictor).__name__,
         "model": predictor.model,
@@ -89,3 +118,50 @@ def save_predictor(predictor: LSTMPredictor, filename: str) -> None:
     }
     with open(filename, "wb") as f:
         pickle.dump(payload, f)
+    if state is not None:
+        with open(filename + ".state", "wb") as f:
+            pickle.dump(state, f)
+
+
+def load_state(filename: str) -> dict:
+    """A training-state sidecar of either package: ``{epoch, params,
+    opt_state_hyper, opt_state}`` with numpy params.  A JAX sidecar's
+    ``opt_state`` comes back as ``OptaxState`` tuples."""
+    with open(filename, "rb") as f:
+        return _StateUnpickler(f).load()
+
+
+def is_port_opt_state(opt_state) -> bool:
+    """True for the port's Adam state (a dict by parameter path), False for
+    a JAX sidecar's optax state."""
+    return isinstance(opt_state, dict)
+
+
+def merge_params_nonstrict(init_params, loaded_params) -> Tuple[Any, list]:
+    """Copy loaded leaves whose path and shape match into ``init_params``
+    (as tensors of the init leaf's dtype and device); report the rest."""
+    skipped = []
+
+    def merge(path, init_leaf):
+        node = loaded_params
+        for p in path:
+            if isinstance(node, dict) and p in node:
+                node = node[p]
+            elif isinstance(node, (list, tuple)) and isinstance(p, int) and p < len(node):
+                node = node[p]
+            else:
+                skipped.append("/".join(map(str, path)))
+                return init_leaf
+        if hasattr(node, "shape") and tuple(node.shape) == tuple(init_leaf.shape):
+            return torch.tensor(np.asarray(node), dtype=init_leaf.dtype, device=init_leaf.device)
+        skipped.append("/".join(map(str, path)))
+        return init_leaf
+
+    def walk(path, node):
+        if isinstance(node, dict):
+            return {k: walk(path + (k,), v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(path + (i,), v) for i, v in enumerate(node))
+        return merge(path, node)
+
+    return walk((), init_params), skipped
