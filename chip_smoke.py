@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's D-LSTM serving and training paths on one NVIDIA card.
+"""Smoke run of the PyTorch port's LSTM family, serving and training, on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -37,7 +37,29 @@ PyTorch built for CUDA (no jax needed).  Phases, one line each:
    card against an f64 step on the CPU (loss 1e-5 relative, gradients 1e-4
    relative + 1e-5 of each leaf's largest), device augmentation keeping
    pairwise distances, and the train step's time at batch 8 and 256 and the
-   grid kernel's against the plain grid's (CUDA events, warm).
+   grid kernel's against the plain grid's (CUDA events, warm);
+7. pools (the main path's other interaction modules), at the trainer's
+   default widths (hidden 128, embedding 64, pool 256, n 12, cell 0.6 m,
+   latent 16, neigh 4, mp_iters 5):
+   (a) ``LSTM.forward(n_predict=12)`` at S=64, A=8 and S=256, A=32 for the
+       ten pooled types, a two-layer S-LSTM, an ``lstm_layer`` D-LSTM, a
+       goal D-LSTM and a D-LSTM at n=8, hidden 64: positions within 1e-3 m
+       of a CPU run of the same params and inputs (nearest neighbours drawn
+       ``NEIGHBOUR_GAP`` apart), each rollout timed, and the launch counters
+       zeroed before and read after each: 19 grid-stage launches and no
+       fused launch for every directional grid off the flagship's widths,
+       19 fused launches for the flagship; the grid stage alone against
+       the plain grid, bit-exact, at every geometry the grid route gives
+       it (n=8, n=12, n=12 with front, and pool_size 2 as n=24 at 0.3 m),
+       and the times of both;
+   (b) ``trainers.lstm.main([... "--device", "cuda"])``, one epoch at batch
+       8, for social, attentionmlp, nn_lstm and ``directional --goals``
+       (goal files written beside the split): finite losses, 19 grid-stage
+       launches per train batch and 2 x 19 per val batch for the goal
+       model, none for the others; each pickle served through ``lstm_cli``;
+   (c) a train step of social and of attentionmlp on the card in f32
+       against f64 on the CPU at phase 6's tolerances, its time, and the
+       memory high-water mark of a social step.
 
 Then one JSON line of the kernels and, last, ``{"ok": true, "device": ...}``.
 Any failed phase raises, so the script exits non-zero and prints no result;
@@ -47,7 +69,8 @@ so does a machine without CUDA or a directory without the package.
 
 adds a profile phase before the last two lines: kernel and plain times at
 larger rollouts, and ``torch.profiler`` tables of warm rollouts, of a warm
-``predict_dataset`` pass and of warm train steps, written into OUT_DIR.
+``predict_dataset`` pass, of warm train steps, and of phase 7's pool
+rollouts and train steps, written into OUT_DIR.
 """
 
 import argparse
@@ -55,6 +78,7 @@ import json
 import logging
 import math
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -82,6 +106,24 @@ TRAIN_BATCH, TRAIN_EPOCHS = 8, 2  # the trainer's default batch
 TRAIN_TIMED = ((TRAIN_BATCH, 8), (256, 8))  # (scenes, agents) of the timed train steps
 # an f32 step on the card against an f64 step on the CPU
 CPU_LOSS_RTOL, CPU_GRAD_RTOL, CPU_GRAD_ATOL_SHARE = 1e-5, 1e-4, 1e-5
+# a named leaf whose CPU gradient is below VANISHING of the step's largest is
+# zero but for rounding; on the card it is held to CPU_VANISHING_ATOL_SHARE
+# of it.  Attention's in_k bias: the softmax ignores a shift common to all
+# logits.
+VANISHING, CPU_VANISHING_ATOL_SHARE = 1e-12, 1e-6
+VANISHING_LEAVES = {"attentionmlp": ("pool/in_k/b",)}
+# phase 7: make_pool's trainer defaults at full width, the rollout shapes
+# (the CLI's batch and a crowded bucket), the scenes of each rollout held
+# against the CPU, the trained types and the synthetic split's sizes
+POOL_ARGS = dict(hidden_dim=128, pool_dim=256, n=N, cell_side=CELL_SIDE, latent_dim=16,
+                 neigh=4, mp_iters=5)
+POOL_EMBEDDING = 64
+POOL_ROLLOUTS = ((BATCH_SCENES, 8), (256, 32))
+POOL_CPU_SCENES = 16
+POOL_TRAINED = (("social", False), ("attentionmlp", False), ("nn_lstm", False),
+                ("directional", True))
+POOL_SPLIT = (320, 96, 64)  # train, val, test scenes
+NEIGHBOUR_GAP = 1e-4  # metres between an agent's nearest neighbour distances
 
 
 def say(phase, **fields):
@@ -171,11 +213,12 @@ def max_diff(got, want) -> float:
 
 # --------------------------------------------------------------- split
 def write_split(root, rng, n_scenes=300, big=140, observed_only=("test",),
-                full=("test_private",)):
+                full=("test_private",), goals=False):
     """A TrajNet++ split: the ``observed_only`` subsets (test/) hold the 9
     observed frames, the ``full`` ones (test_private/, train/, val/) all 21.
     Scenes of 2..32 agents (buckets 4..32) and, unless ``big`` is None, one
-    of ``big``.
+    of ``big``.  With ``goals``, ``goal_files/<subset>/synth.pkl`` for each
+    ``full`` subset: every pedestrian's last position.
 
     Returns per scene (primary's id, observed positions [9, n, 2] as written,
     NaN where absent), agents in the order a TrajNet++ reader gives them:
@@ -183,6 +226,7 @@ def write_split(root, rng, n_scenes=300, big=140, observed_only=("test",),
     sizes = list(rng.integers(2, 33, size=n_scenes - (big is not None)))
     sizes += [big] if big is not None else []
     test, private, observed = [], [], []
+    goal_of = {}
     ped = 0
     for sid, n in enumerate(sizes):
         f0 = sid * 1000
@@ -205,6 +249,7 @@ def write_split(root, rng, n_scenes=300, big=140, observed_only=("test",),
                 x, y = start[j] + vel[j] * t + rng.normal(scale=0.02, size=2)
                 x, y = round(float(x), 2), round(float(y), 2)
                 row = {"track": {"f": frames[t], "p": ped, "x": x, "y": y}}
+                goal_of[ped] = (x, y)
                 private.append(row)
                 if t < 9:
                     test.append(row)
@@ -214,6 +259,10 @@ def write_split(root, rng, n_scenes=300, big=140, observed_only=("test",),
         os.makedirs(os.path.join(root, sub), exist_ok=True)
         with open(os.path.join(root, sub, "synth.ndjson"), "w") as f:
             f.writelines(json.dumps(r) + "\n" for r in rows)
+    for sub in full if goals else ():
+        os.makedirs(os.path.join("goal_files", sub), exist_ok=True)
+        with open(os.path.join("goal_files", sub, "synth.pkl"), "wb") as f:
+            pickle.dump(goal_of, f)
     return observed
 
 
@@ -247,11 +296,57 @@ def profiled(fn, reps, table_path, kernel="fused_step_kernel"):
             "device_busy": device_ms / wall_ms if wall_ms else 0.0}
 
 
+def step_on(trainer, batch, device, dtype):
+    """(loss, gradients) of one train step with ``trainer``'s params as
+    ``dtype`` on ``device`` (data as it is, moved there)."""
+    from trajnetplusplusbaselines_torch.trainers import lstm as train_cli
+    from trajnetplusplusbaselines_torch.trainers.common import step_lr
+    from trajnetplusplusbaselines_torch.utils.convert import params_from_jax, params_to_numpy
+
+    other = train_cli.Trainer(trainer.model, params_from_jax(
+        params_to_numpy(trainer.params), device=device, dtype=dtype), step_lr(1e-3, 10))
+    return other.loss_and_grads(*(x.to(device) for x in batch))
+
+
+def step_errors(got, want, paths, vanishing=()):
+    """(loss relative error, largest gradient error as a share of its leaf's
+    largest) of the step ``got`` against the f64 step ``want``; raises beyond
+    the tolerances.  The leaves named in ``vanishing`` whose f64 gradient is
+    zero but for rounding are held to a share of the step's largest."""
+    (loss_k, grads_k), (loss_c, grads_c) = got, want
+    loss_rel = abs(float(loss_k) - float(loss_c)) / abs(float(loss_c))
+    if loss_rel > CPU_LOSS_RTOL:
+        raise AssertionError(f"losses differ by {loss_rel} relative")
+    grad_err = 0.0
+    step_scale = max(float(w.abs().max()) for w in grads_c)
+    for path, g, w in zip(paths, grads_k, grads_c):
+        scale = float(w.abs().max())
+        if path in vanishing and scale <= VANISHING * step_scale:
+            if float(g.abs().max()) > CPU_VANISHING_ATOL_SHARE * step_scale:
+                raise AssertionError(f"gradient of {path} is {float(g.abs().max())}, "
+                                     f"where the f64 one vanishes")
+            continue
+        torch.testing.assert_close(g.cpu().double(), w, rtol=CPU_GRAD_RTOL,
+                                   atol=CPU_GRAD_ATOL_SHARE * scale,
+                                   msg=lambda m: f"gradient of {path}: {m}")
+        grad_err = max(grad_err, max_diff([g], [w]) / max(scale, 1e-30))
+    return loss_rel, grad_err
+
+
+def check_against_cpu(trainer, batch):
+    """An f32 train step on the card against an f64 step on the CPU from the
+    same params and batch: (loss relative error, largest gradient error as
+    a share of its leaf's largest).  Raises beyond the tolerances."""
+    return step_errors(trainer.loss_and_grads(*batch),
+                       step_on(trainer, batch, "cpu", torch.float64), trainer.paths)
+
+
 def train_phase(dev, rng) -> dict:
     """Phase 6: train the flagship D-LSTM through ``trainers.lstm.main`` on
     ``dev`` and check it (see the module's docstring).  Returns the launch
     counts of that run, the timings and the timed trainer."""
     from trajnetplusplusbaselines_torch.evaluator import lstm_cli
+    from trajnetplusplusbaselines_torch.models import lstm as lstm_module
     from trajnetplusplusbaselines_torch.ops.cuda import fused_step
     from trajnetplusplusbaselines_torch.trainers import lstm as train_cli
     from trajnetplusplusbaselines_torch.trainers.common import bucket_batches, step_lr
@@ -332,8 +427,11 @@ def train_phase(dev, rng) -> dict:
 
     # one train step with the grid kernel and with the plain grid
     loss_k, grads_k = trainer.loss_and_grads(*batch)
-    with mock.patch.object(fused_step, "directional_grid", fused_step.directional_grid_plain):
+    launched = fused_step.directional_grid.launches
+    with mock.patch.object(lstm_module, "directional_grid", fused_step.directional_grid_plain):
         loss_p, grads_p = trainer.loss_and_grads(*batch)
+    if fused_step.directional_grid.launches != launched:
+        raise AssertionError("the plain-grid train step launched the grid kernel")
     grid_train_err = max_diff([loss_k, *grads_k], [loss_p, *grads_p])
     for path, g, w in zip(("loss", *trainer.paths), [loss_k, *grads_k], [loss_p, *grads_p]):
         if not torch.equal(g, w):
@@ -341,19 +439,7 @@ def train_phase(dev, rng) -> dict:
                                  f"by {max_diff([g], [w])}")
 
     # an f32 step on the card against an f64 step on the CPU
-    cpu_trainer = train_cli.Trainer(trainer.model, params_from_jax(
-        params_to_numpy(trainer.params), dtype=torch.float64), step_lr(1e-3, 10))
-    loss_c, grads_c = cpu_trainer.loss_and_grads(*(x.cpu() for x in batch))
-    cpu_loss_rel = abs(float(loss_k) - float(loss_c)) / abs(float(loss_c))
-    if cpu_loss_rel > CPU_LOSS_RTOL:
-        raise AssertionError(f"card and CPU losses differ by {cpu_loss_rel} relative")
-    cpu_grad_err = 0.0
-    for path, g, w in zip(trainer.paths, grads_k, grads_c):
-        scale = float(w.abs().max())
-        torch.testing.assert_close(g.cpu().double(), w, rtol=CPU_GRAD_RTOL,
-                                   atol=CPU_GRAD_ATOL_SHARE * scale,
-                                   msg=lambda m: f"gradient of {path}: {m}")
-        cpu_grad_err = max(cpu_grad_err, max_diff([g], [w]) / max(scale, 1e-30))
+    cpu_loss_rel, cpu_grad_err = check_against_cpu(trainer, batch)
 
     # warm train steps (CUDA events), and the grid kernel at the batch-8 shape
     timed = train_cli.Trainer(trainer.model, params_from_jax(params_to_numpy(trainer.params),
@@ -387,6 +473,248 @@ def train_phase(dev, rng) -> dict:
         + "  grid {:.4f} ms vs plain {:.4f} ms".format(grid_ms, plain_grid_ms), flush=True)
     return {"launches": train_launches, "grid_ms": grid_ms, "plain_grid_ms": plain_grid_ms,
             "timed": timed}
+
+
+def pool_models() -> dict:
+    """Phase 7's models, name -> ``LSTM``: the ten pooled ``--type`` values
+    at ``make_pool``'s trainer defaults, a two-layer S-LSTM, a stateful
+    ``lstm_layer`` D-LSTM, a goal D-LSTM and a D-LSTM at n=8, hidden 64."""
+    from types import SimpleNamespace
+
+    from trajnetplusplusbaselines_torch.models.lstm import LSTM
+    from trajnetplusplusbaselines_torch.ops.pooling import POOL_TYPES, make_pool
+
+    def model(type_, goal_flag=False, **kw):
+        args = SimpleNamespace(**{**POOL_ARGS, **kw})
+        return LSTM(pool=make_pool(type_, args), embedding_dim=POOL_EMBEDDING,
+                    hidden_dim=args.hidden_dim, goal_flag=goal_flag)
+
+    models = {t: model(t) for t in POOL_TYPES[1:]}
+    models["social_two_layer"] = model("social", embedding_arch="two_layer")
+    models["directional_lstm_layer"] = model("directional", embedding_arch="lstm_layer")
+    models["directional_goals"] = model("directional", goal_flag=True)
+    models["directional_n8"] = model("directional", n=8, hidden_dim=64, pool_dim=64)
+    return models
+
+
+def close_neighbours(xy, mask, k):
+    """[S] bool: scenes where some agent's k + 1 nearest neighbours at some
+    frame lie within ``NEIGHBOUR_GAP`` of each other's distance."""
+    d = np.linalg.norm(xy[:, :, :, None] - xy[:, :, None, :], axis=-1)  # [T, S, A, A]
+    valid = mask[:, :, :, None] & mask[:, :, None, :] & ~np.eye(xy.shape[2], dtype=bool)
+    d = np.sort(np.where(valid, d, np.inf), axis=-1)[..., : k + 1]
+    gaps = np.diff(d, axis=-1)
+    return ((gaps < NEIGHBOUR_GAP) & np.isfinite(d[..., 1:])).any(axis=(0, 2, 3))
+
+
+def pool_inputs(rng, s, a, device):
+    """``rollout_inputs`` with every agent's nearest neighbours at distances
+    ``NEIGHBOUR_GAP`` apart or more (scenes redrawn until they are), so that
+    the nearest-neighbour order is the same on the card and on the CPU;
+    goals [S, A, 2], agent 0's on its last observed position; and the slot
+    mask, the slots observed at some frame."""
+    xy, mask = (x.numpy() for x in rollout_inputs(rng, s, a, "cpu"))
+    for _ in range(200):
+        bad = close_neighbours(xy, mask, POOL_ARGS["neigh"])
+        if not bad.any():
+            break
+        redrawn = rollout_inputs(rng, s, a, "cpu")[0].numpy()
+        xy[:, bad] = redrawn[:, bad]
+    else:
+        raise AssertionError("could not draw scenes with separated neighbours")
+    goals = rng.uniform(-5, 5, size=(s, a, 2)).astype(np.float32)
+    goals[:, 0] = xy[-1, :, 0]
+    return [torch.from_numpy(x).to(device)
+            for x in (xy, mask, goals, mask.any(axis=0))]
+
+
+def pools_phase(dev, rng) -> dict:
+    """Phase 7 (see the module's docstring).  Returns the launch counts of
+    its rollouts and its training and serving runs."""
+    from trajnetplusplusbaselines_torch.evaluator import lstm_cli
+    from trajnetplusplusbaselines_torch.evaluator.learned import bucket_plan
+    from trajnetplusplusbaselines_torch.ops.cuda import fused_step
+    from trajnetplusplusbaselines_torch.ops.pooling import GridBasedPooling
+    from trajnetplusplusbaselines_torch.trainers import lstm as train_cli
+    from trajnetplusplusbaselines_torch.trainers.common import Batch
+    from trajnetplusplusbaselines_torch.utils.convert import params_to
+
+    kernels = (("fused_dlstm_step", fused_step.fused_dlstm_step),
+               ("directional_grid", fused_step.directional_grid))
+    totals = {name: 0 for name, _ in kernels}
+
+    def zero():
+        for _, fn in kernels:
+            fn.launches = 0
+
+    def read(want):
+        got = {name: fn.launches for name, fn in kernels}
+        for name in totals:
+            totals[name] += got[name]
+        if got != want:
+            raise AssertionError(f"launched {got}, expected {want}")
+        return got
+
+    # (a) rollouts of every pool at two shapes, card against CPU
+    inputs = {shape: pool_inputs(rng, *shape, dev) for shape in POOL_ROLLOUTS}
+    rollout_ms = {}
+    for name, model in pool_models().items():
+        params = model.init_params(torch.Generator().manual_seed(7), device=dev)
+        cpu_params = params_to(params, "cpu")
+        route = model.route(records=False)
+        for s, a in POOL_ROLLOUTS:
+            xy, mask, goals, slot = inputs[(s, a)]
+            kw = dict(n_predict=12, goals=goals, slot_mask=slot)
+            zero()
+            with torch.no_grad():
+                _, pred, valid = model.forward(params, xy, mask, **kw)
+            torch.cuda.synchronize()
+            launches = read({"fused_dlstm_step": 19 * (route == "fused"),
+                             "directional_grid": 19 * (route == "grid")})
+            k = POOL_CPU_SCENES
+            with torch.no_grad():
+                _, cpu_pred, cpu_valid = model.forward(
+                    cpu_params, xy[:, :k].cpu(), mask[:, :k].cpu(), n_predict=12,
+                    goals=goals[:k].cpu(), slot_mask=slot[:k].cpu())
+            if pred.shape != (19, s, a, 2) or not torch.isfinite(pred).all():
+                raise AssertionError(f"{name}: positions are not finite [19, S, A, 2]")
+            if not torch.equal(valid[:, :k].cpu(), cpu_valid):
+                raise AssertionError(f"{name}: validity differs from the CPU's at S={s} A={a}")
+            err = float((pred[:, :k].cpu() - cpu_pred)[cpu_valid].abs().max())
+            if err > POSITION_ATOL:
+                raise AssertionError(f"{name}: positions differ from the CPU's by {err} m "
+                                     f"at S={s} A={a}")
+            with torch.no_grad():
+                ms = time_ms(lambda: model.forward(params, xy, mask, **kw), reps=5, warmup=2)
+            rollout_ms[(name, s, a)] = ms
+            say("pools_rollout", model=name, s=s, a=a, route=route, launches=launches,
+                max_position_err_m=err, cpu_scenes=k, rollout_ms=ms,
+                rollout_scenes_per_s=s / ms * 1e3)
+
+    # the grid stage alone at the geometries the grid route gives it: n=8,
+    # n=12, n=12 with front, and pool_size 2 (side 24 at half the cell);
+    # kernel against plain, bit-exact, and both timed
+    geometries = {"n8": dict(n=8), f"n{N}": dict(n=N), f"n{N}_front": dict(n=N, front=True),
+                  f"n{2 * N}_pool2": GridBasedPooling(
+                      type_="directional", n=N, cell_side=CELL_SIDE, pool_size=2).grid_stage_args}
+    grid_us, grid_err = {}, 0.0
+    for s, a in ((TRAIN_BATCH, 8), *POOL_ROLLOUTS):
+        obs1, obs2, p1, p2 = step_inputs(rng, s, a, dev)
+        for tag, geometry in geometries.items():
+            geometry = {"cell_side": CELL_SIDE, **geometry}
+            got = fused_step.directional_grid(obs1, obs2, p1, p2, **geometry)
+            want = fused_step.directional_grid_plain(obs1, obs2, p1, p2, **geometry)
+            torch.cuda.synchronize()
+            grid_err = max(grid_err, max_diff([got], [want]))
+            if not torch.equal(got, want):
+                bad = (got != want).nonzero()[:5].tolist()
+                raise AssertionError(f"grid {tag} differs at S={s} A={a}: first cells {bad}")
+            grid_us[f"S{s}xA{a}_{tag}"] = {
+                "kernel_us": 1e3 * time_ms(lambda: fused_step.directional_grid(
+                    obs1, obs2, p1, p2, **geometry), reps=50),
+                "plain_us": 1e3 * time_ms(lambda: fused_step.directional_grid_plain(
+                    obs1, obs2, p1, p2, **geometry), reps=50),
+                "cells_hit": int((got != 0).sum())}
+    say("pools_grid", bit_exact=True, max_abs_err=grid_err, **grid_us)
+
+    # (b) training and serving through the CLIs, one epoch per type
+    cwd = os.getcwd()
+    root = "DATA_BLOCK/synth_pools"
+    trained = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            n_train, n_val, n_test = POOL_SPLIT
+            write_split(root, rng, n_scenes=n_train, big=None, observed_only=(),
+                        full=("train",), goals=True)
+            write_split(root, rng, n_scenes=n_val, big=None, observed_only=(),
+                        full=("val",), goals=True)
+            observed = write_split(root, rng, n_scenes=n_test, big=None, goals=True)
+            serve_plan = bucket_plan([xy.shape[1] for _, xy in observed], BATCH_SCENES)
+            for kind, goals in POOL_TRAINED:
+                zero()
+                t0 = time.perf_counter()
+                trainer = train_cli.main(argv=[
+                    "--path", "synth_pools", "--type", kind, "--n", str(POOL_ARGS["n"]),
+                    "--cell_side", str(POOL_ARGS["cell_side"]),
+                    "--pool_dim", str(POOL_ARGS["pool_dim"]),
+                    "--hidden-dim", str(POOL_ARGS["hidden_dim"]),
+                    "--coordinate-embedding-dim", str(POOL_EMBEDDING),
+                    "--latent_dim", str(POOL_ARGS["latent_dim"]),
+                    "--neigh", str(POOL_ARGS["neigh"]), "--mp_iters", str(POOL_ARGS["mp_iters"]),
+                    "--epochs", "1", "--batch_size", str(TRAIN_BATCH), "--seed", "0",
+                    "-o", "pools", "--device", DEVICE, *(["--goals"] if goals else [])])
+                torch.cuda.synchronize()
+                cli_s = time.perf_counter() - t0
+                for handler in logging.getLogger().handlers[:]:  # the trainer's log file
+                    handler.close()
+                    logging.getLogger().removeHandler(handler)
+                (_, resident), (_, val_resident) = trainer._resident.values()
+                batches = [sum(idx.shape[0] for idx, _ in
+                               r.epoch_plan(TRAIN_BATCH, np.random.default_rng(0)).values())
+                           for r in (resident, val_resident)]
+                route = trainer.model.route(records=True)
+                train_launches = read({"fused_dlstm_step": 0, "directional_grid":
+                                       19 * (batches[0] + 2 * batches[1]) * (route == "grid")})
+                out = f"OUTPUT_BLOCK/synth_pools/{'lstm_goals' if goals else 'lstm'}_{kind}_pools.pkl"
+                with open(out + ".log") as f:
+                    records = [json.loads(line) for line in f]
+                losses = [r[key] for r in records for key in ("loss", "test_loss")
+                          if r.get("type") in ("train", "train-epoch", "val-epoch") and key in r]
+                if not losses or not np.isfinite(losses).all():
+                    raise AssertionError(f"{kind}: training logged {records}")
+
+                zero()
+                table = lstm_cli.main(["--path", "synth_pools", "--output", out,
+                                       "--device", DEVICE])
+                torch.cuda.synchronize()
+                serve_launches = read({"fused_dlstm_step": 0, "directional_grid":
+                                       19 * len(serve_plan) * (route == "grid")})
+                served = table.results[os.path.basename(out)[:-4] + "_modes1"][32:40]
+                if served[0] != n_test or not np.isfinite(served[1:3]).all():
+                    raise AssertionError(f"{kind}: the trained model scored {served}")
+
+                trained[kind] = trainer
+                say("pools_train", type=kind, goals=goals, route=route, cli_seconds=cli_s,
+                    train_batches=batches[0], val_batches=batches[1],
+                    train_launches=train_launches, serve_launches=serve_launches,
+                    epoch_loss=[r["loss"] for r in records if r.get("type") == "train-epoch"],
+                    served_ade_fde=served[1:3])
+        finally:
+            os.chdir(cwd)
+
+    # (c) one train step on the card against the CPU, its time and memory.
+    # A grid is not continuous in the positions, so the f32 and f64 steps
+    # agree only where no neighbour sits within rounding of a cell boundary.
+    # The split's positions are whole centimetres, and 0.6 m is not exact in
+    # f32: every offset of a multiple of 0.6 m lands in another cell in f32
+    # than in f64.  So the check runs on a random-walk batch.
+    xy, mask, scene = train_inputs(rng, TRAIN_BATCH, 8, dev)
+    batch = Batch(xy, mask, scene, torch.zeros_like(xy[0]), mask.any(dim=0))
+    for kind in ("social", "attentionmlp"):
+        trainer = trained[kind]
+        loss_rel, grad_err = step_errors(trainer.loss_and_grads(*batch),
+                                         step_on(trainer, batch, "cpu", torch.float64),
+                                         trainer.paths, VANISHING_LEAVES.get(kind, ()))
+        step_ms = time_ms(lambda: trainer.train_step(*batch), reps=10)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        trainer.train_step(*batch)
+        torch.cuda.synchronize()
+        peak = {f"A{batch.xy.shape[2]}": torch.cuda.max_memory_allocated() - base}
+        if kind == "social":  # and in a crowded bucket
+            crowded = train_inputs(rng, TRAIN_BATCH, 32, dev)
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            trainer.train_step(*crowded)
+            torch.cuda.synchronize()
+            peak["A32"] = torch.cuda.max_memory_allocated() - base
+        say("pools_step", type=kind, batch=list(batch.xy.shape), cpu_loss_rel_err=loss_rel,
+            cpu_grad_max_err_share=grad_err, train_step_ms=step_ms,
+            train_scenes_per_s=TRAIN_BATCH / step_ms * 1e3, step_peak_bytes=peak)
+    print("Pools  " + "  ".join(f"{m} {s}x{a}: {ms:.2f} ms"
+                                for (m, s, a), ms in rollout_ms.items()), flush=True)
+    return {"launches": totals, "grid_err": grid_err}
 
 
 def main() -> int:
@@ -603,6 +931,9 @@ def main() -> int:
     # ---- 6: train, the main path's second entry point
     train = train_phase(dev, rng)
 
+    # ---- 7: pools: every interaction module, rolled out, trained and served
+    pools = pools_phase(dev, rng)
+
     # ---- profile (optional): larger rollouts and profiler tables
     if opts.profile:
         out = Path(opts.profile)
@@ -628,10 +959,37 @@ def main() -> int:
             say("profile_trace", what=f"train_step S={s} A={a}", **profiled(
                 lambda: train["timed"].train_step(*b), 10, out / f"train_step_{s}x{a}.txt",
                 kernel="directional_grid_kernel"))
+        # phase 7's pools: rollouts in the crowded bucket and a train step
+        from trajnetplusplusbaselines_torch.trainers.lstm import Trainer
+        from trajnetplusplusbaselines_torch.trainers.common import Batch, step_lr
+
+        models = pool_models()
+        s, a = POOL_ROLLOUTS[-1]
+        xy, mask, goals, slot = pool_inputs(rng, s, a, dev)
+        for name in ("social", "attentionmlp", "nmmp", "directional_goals"):
+            model = models[name]
+            pool_params = model.init_params(torch.Generator().manual_seed(7), device=dev)
+
+            def rollout():
+                with torch.no_grad():
+                    model.forward(pool_params, xy, mask, n_predict=12, goals=goals,
+                                  slot_mask=slot)
+
+            say("profile_trace", what=f"{name} rollout S={s} A={a}", **profiled(
+                rollout, 3, out / f"pools_{name}_{s}x{a}.txt", kernel="directional_grid_kernel"))
+            if name in ("social", "attentionmlp"):
+                trainer = Trainer(model, pool_params, step_lr(1e-3, 10))
+                b_xy, b_mask, b_scene = train_inputs(rng, TRAIN_BATCH, 8, dev)
+                batch = Batch(b_xy, b_mask, b_scene, torch.zeros_like(b_xy[0]),
+                              b_mask.any(dim=0))
+                say("profile_trace", what=f"{name} train_step S={TRAIN_BATCH} A=8",
+                    **profiled(lambda: trainer.train_step(*batch), 5,
+                               out / f"pools_{name}_train_step.txt"))
 
     main_s, main_a = ROLLOUTS[0]
     source = "trajnetplusplusbaselines_torch/csrc/fused_step.cu"
-    by_path = {name: {"serve": main_launches[name], "train": train["launches"][name]}
+    by_path = {name: {"serve": main_launches[name], "train": train["launches"][name],
+                      "pools": pools["launches"][name]}
                for name in main_launches}
     print(json.dumps({"kernels": [{
         "name": "fused_dlstm_step",
@@ -645,13 +1003,14 @@ def main() -> int:
         "plain_ms": times[(main_s, main_a)]["plain_step_ms"],
     }, {
         # the fused kernel's grid stage alone, launched by the training step
+        # and by every other directional grid
         "name": "directional_grid",
         "route": "cuda",
         "source": source,
         "replaces": "trajnetplusplusbaselines_tpu/ops/pallas/fused_step.py:76",
         "launches": sum(by_path["directional_grid"].values()),
         "launches_by_path": by_path["directional_grid"],
-        "max_abs_err": grid_err,
+        "max_abs_err": max(grid_err, pools["grid_err"]),
         "ms": train["grid_ms"],
         "plain_ms": train["plain_grid_ms"],
     }]}), flush=True)

@@ -151,7 +151,7 @@ def test_step_switch_is_whether_autograd_records(grad_mode, requires_grad, want,
     from trajnetplusplusbaselines_torch.models import lstm as lstm_module
 
     calls = {"fused": 0, "grid": 0}
-    for name, key in (("fused_dlstm_step", "fused"), ("grid_dlstm_step", "grid")):
+    for name, key in (("fused_dlstm_step", "fused"), ("directional_grid", "grid")):
         def counted(*args, _fn=getattr(lstm_module, name), _key=key, **kw):
             calls[_key] += 1
             return _fn(*args, **kw)
@@ -185,6 +185,7 @@ def test_train_step_through_the_grid_kernel_on_the_card():
         pytest.skip("needs a CUDA card")
     from unittest import mock
 
+    from trajnetplusplusbaselines_torch.models import lstm as lstm_module
     from trajnetplusplusbaselines_torch.ops.cuda import fused_step
     from trajnetplusplusbaselines_torch.trainers.common import step_lr
     from trajnetplusplusbaselines_torch.trainers.lstm import Trainer
@@ -200,8 +201,9 @@ def test_train_step_through_the_grid_kernel_on_the_card():
     loss, grads = trainer.loss_and_grads(*batch)
     torch.cuda.synchronize()
     assert fused_step.directional_grid.launches - before == 19
-    with mock.patch.object(fused_step, "directional_grid", fused_step.directional_grid_plain):
+    with mock.patch.object(lstm_module, "directional_grid", fused_step.directional_grid_plain):
         plain_loss, plain_grads = trainer.loss_and_grads(*batch)
+    assert fused_step.directional_grid.launches - before == 19  # the plain grid ran
     assert bool(torch.isfinite(loss))
     # the grid is bit-exact and the rest is the same torch code
     assert torch.equal(loss, plain_loss)
@@ -209,3 +211,52 @@ def test_train_step_through_the_grid_kernel_on_the_card():
         assert torch.equal(g, p), path
     trainer.train_step(*batch)
     assert fused_step.directional_grid.launches - before == 38
+
+
+@pytest.mark.cuda
+def test_directional_grids_of_any_width_run_on_the_card():
+    """A D-LSTM at n=8, hidden 64, pool 64 rolls out and takes a train step
+    on the card through the grid stage, never the fused step; the grid stage
+    is bit-exact at other sides and with ``front``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from trajnetplusplusbaselines_torch.models.lstm import LSTM
+    from trajnetplusplusbaselines_torch.ops.cuda import fused_step
+    from trajnetplusplusbaselines_torch.ops.pooling import GridBasedPooling
+    from trajnetplusplusbaselines_torch.trainers.common import step_lr
+    from trajnetplusplusbaselines_torch.trainers.lstm import Trainer
+    from trajnetplusplusbaselines_torch.utils.convert import params_to
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    for n, front in ((1, False), (5, False), (8, True), (24, False), (32, True)):
+        obs1, obs2, p1, p2 = (torch.from_numpy(x).to(dev) for x in
+                              step_inputs(n, 16, 9, n_pad=1, dtype=np.float32))
+        kw = dict(n=n, cell_side=0.6 / (2 if n == 24 else 1), constant=0.5, front=front)
+        got = fused_step.directional_grid(obs1, obs2, p1, p2, **kw)
+        assert torch.equal(got, fused_step.directional_grid_plain(obs1, obs2, p1, p2, **kw))
+
+    model = LSTM(pool=GridBasedPooling(type_="directional", hidden_dim=64, cell_side=0.6, n=8,
+                                       out_dim=64), embedding_dim=64, hidden_dim=64)
+    assert not model.fused and model.route(records=False) == "grid"
+    params = model.init_params(torch.Generator().manual_seed(3))
+    xy, mask = example_batch(8, 8, seed=5)
+    xy32 = torch.from_numpy(xy.astype(np.float32))
+    mask_t = torch.from_numpy(mask)
+    launches = fused_step.fused_dlstm_step.launches, fused_step.directional_grid.launches
+    with torch.no_grad():
+        _, pred, valid = model.forward(params_to(params, dev), xy32[:9].to(dev),
+                                       mask_t[:9].to(dev), n_predict=12)
+        _, cpu_pred, cpu_valid = model.forward(params, xy32[:9], mask_t[:9], n_predict=12)
+    torch.cuda.synchronize()
+    assert fused_step.directional_grid.launches - launches[1] == 19
+    assert torch.equal(valid.cpu(), cpu_valid)
+    torch.testing.assert_close(pred.cpu(), cpu_pred, atol=1e-3, rtol=0)
+
+    trainer = Trainer(model, params_to(params, dev), step_lr(1e-3, 10))
+    batch = (xy32.to(dev), mask_t.to(dev), torch.ones(8, dtype=torch.bool, device=dev))
+    loss = trainer.train_step(*batch)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(loss))
+    assert fused_step.directional_grid.launches - launches[1] == 38
+    assert fused_step.fused_dlstm_step.launches == launches[0]

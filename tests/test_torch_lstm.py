@@ -95,8 +95,14 @@ def test_not_ported_paths_raise():
         model.forward(params, obs, m, truth)
     with pytest.raises(ValueError):
         model.forward(params, obs, m)
-    with pytest.raises(NotImplementedError):
-        LSTM(goal_flag=True)
+    # goal models are ported: one needs its goals
+    goal_model = LSTM(embedding_dim=8, hidden_dim=16, goal_flag=True)
+    goal_params = goal_model.init_params(torch.Generator().manual_seed(0), dtype=torch.float64)
+    with pytest.raises(ValueError, match="needs goals"):
+        goal_model.forward(goal_params, obs, m, n_predict=12)
+    rel, _, _ = goal_model.forward(goal_params, obs, m, n_predict=12,
+                                   goals=torch.zeros(1, 4, 2, dtype=torch.float64))
+    assert bool(torch.isfinite(rel).all())
 
 
 def _paths(seed, n_agents=4, t=9):

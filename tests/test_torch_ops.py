@@ -158,8 +158,9 @@ def test_grid_apply(type_):
     want, _ = jpool.apply(jparams, None, None, jnp.asarray(obs1), jnp.asarray(obs2),
                           jnp.asarray(p1), jnp.asarray(p2))
     pool = GridBasedPooling(type_=type_, n=N, cell_side=CELL_SIDE, out_dim=256, hidden_dim=128)
-    got = pool.apply(_np_params(jparams), torch.from_numpy(obs1), torch.from_numpy(obs2),
-                     torch.from_numpy(p1), torch.from_numpy(p2))
+    got, state = pool.apply(_np_params(jparams), None, None, torch.from_numpy(obs1),
+                            torch.from_numpy(obs2), torch.from_numpy(p1), torch.from_numpy(p2))
+    assert state is None
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
 
 
@@ -169,5 +170,24 @@ def test_grid_apply(type_):
     dict(pool_size=2),
 ])
 def test_grid_configs_not_ported_raise(kwargs):
-    with pytest.raises(NotImplementedError):
-        GridBasedPooling(**{"type_": "directional", **kwargs})
+    """Once refused, each of these grid options is ported now: one apply
+    matches eager JAX's at 1e-12, the state of ``lstm_layer`` included."""
+    kw = {"type_": "directional", "n": 4, "cell_side": CELL_SIDE, "hidden_dim": 16,
+          "out_dim": 16, "latent_dim": 4, "layer_dims": [8], **kwargs}
+    jpool = JGrid(**kw)
+    jparams = _jax_params(jpool.init_params)
+    obs1, obs2, p1, p2 = step_inputs(9, 3, 6)
+    rng = np.random.default_rng(10)
+    hidden = rng.normal(size=(3, 6, 16))
+    jstate = jpool.init_state(3, 6)
+    slot = np.arange(6)[None] < np.array([[6], [5], [4]])
+    want, want_state = jpool.apply(jparams, jstate, jnp.asarray(hidden),
+                                   *map(jnp.asarray, (obs1, obs2, p1, p2, slot)))
+    pool = GridBasedPooling(**kw)
+    state = pool.init_state(3, 6, dtype=torch.float64)
+    got, got_state = pool.apply(_np_params(jparams), state, torch.from_numpy(hidden),
+                                *map(torch.from_numpy, (obs1, obs2, p1, p2, slot)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+    assert (got_state is None) == (want_state is None) == (kw.get("embedding_arch") != "lstm_layer")
+    for g, w in zip(got_state or (), want_state or ()):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL, rtol=0)

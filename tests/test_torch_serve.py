@@ -23,11 +23,11 @@ from trajnetplusplusbaselines_tpu.models.lstm import LSTMPredictor as JPredictor
 from trajnetplusplusbaselines_tpu.ops.pooling import GridBasedPooling as JGrid
 from trajnetplusplusbaselines_torch.evaluator.learned import BatchedPredictor
 from trajnetplusplusbaselines_torch.models.lstm import LSTMPredictor
+from trajnetplusplusbaselines_torch.ops.pooling import POOL_TYPES
 from trajnetplusplusbaselines_torch.utils.checkpoint import load_predictor, save_predictor
-from trajnetplusplusbaselines_torch.utils.convert import params_from_jax
 
 from .helpers import make_synthetic_dataset
-from .torch_parity import flagship_params, port_model
+from .torch_parity import flagship_params, jax_pool_model, port_model, write_goal_files
 
 
 def _scene_paths(rng, n_agents, t=9):
@@ -162,10 +162,13 @@ def test_load_jax_pickle_keeps_config_and_params(tmp_path):
 
 
 def test_load_predictor_refuses_what_is_not_ported(tmp_path):
-    social = str(tmp_path / "social.pkl")
-    _jax_pickle(social, pool_type="social")
-    with pytest.raises(NotImplementedError):
-        load_predictor(social)
+    from trajnetplusplusbaselines_tpu.models.sgan import SGAN, SGANPredictor
+    from trajnetplusplusbaselines_tpu.utils.checkpoint import save_predictor as jax_save
+
+    sgan = str(tmp_path / "sgan.pkl")
+    jax_save(SGANPredictor(SGAN(), {}), None, sgan)
+    with pytest.raises(NotImplementedError, match="SGAN"):
+        load_predictor(sgan)
 
     foreign = str(tmp_path / "foreign.pkl")
     with open(foreign, "wb") as f:
@@ -223,3 +226,59 @@ def test_driver_skips_existing_and_backfills(tmp_path, monkeypatch, capsys):
     assert sorted(os.listdir(os.path.join(args.path, "cv_modes1"))) == \
         ["synth.ndjson", "synth2.ndjson"]
     assert not os.path.exists(os.path.join(args.path, "cv_modes1.tmp"))
+
+
+def _tiny_jax_pickle(path, name):
+    from trajnetplusplusbaselines_tpu.utils.checkpoint import save_predictor as jax_save
+
+    jmodel, jparams, _ = jax_pool_model(name, seed=11)
+    jax_save(JPredictor(jmodel, jparams), None, path)
+    return jmodel, jparams
+
+
+@pytest.mark.parametrize("name", list(POOL_TYPES) + ["goals"])
+def test_every_type_serves_like_jax(name, tmp_path):
+    """A JAX pickle of each type, and of a goal model, loads without jax and
+    predicts as JAX's ``BatchedPredictor`` does, goals centred with their
+    scenes."""
+    pkl = str(tmp_path / f"{name}.pkl")
+    jmodel, jparams = _tiny_jax_pickle(pkl, name)
+    rng = np.random.default_rng(12)
+    scenes = [_scene_paths(rng, n) for n in (1, 3, 4, 2, 4)]
+    goals = [rng.normal(scale=3.0, size=(len(s), 2)) for s in scenes]
+    args = types.SimpleNamespace(pred_length=12, obs_length=9, normalize_scene=True)
+    want = JBatched(JPredictor(jmodel, jparams)).predict_dataset(scenes, goals, args)
+    loaded = load_predictor(pkl)
+    assert type(loaded.model.pool).__name__ == type(jmodel.pool).__name__
+    predictor = BatchedPredictor(loaded, device="cpu")
+    assert predictor.goal_flag == (name == "goals")
+    got = predictor.predict_dataset(scenes, goals, args)
+    for g, w, paths in zip(got, want, scenes):
+        assert g[0][0].shape == (12, 2) and g[0][1].shape == (12, len(paths) - 1, 2)
+        np.testing.assert_allclose(g[0][0], w[0][0], atol=1e-8, rtol=0)
+        np.testing.assert_allclose(g[0][1], w[0][1], atol=1e-8, rtol=0)
+
+
+def test_cli_serves_every_type(tmp_path, monkeypatch):
+    """One ``lstm_cli`` run over a JAX pickle of every type and of a goal
+    model, the goal model reading ``goal_files/test_private``; without that
+    file the goal model raises, except on ``collision_test``."""
+    from trajnetplusplusbaselines_torch.evaluator import lstm_cli
+    from trajnetplusplusbaselines_torch.evaluator.driver import load_goals
+
+    make_synthetic_dataset(str(tmp_path / "DATA_BLOCK" / "synthset"), n_scenes=3)
+    monkeypatch.chdir(tmp_path)
+    names = list(POOL_TYPES) + ["goals"]
+    for name in names:
+        _tiny_jax_pickle(f"{name}.pkl", name)
+    scenes = [("synth", 0, [[TrackRow(0, 7, 0.0, 0.0)]])]
+    with pytest.raises(FileNotFoundError):
+        load_goals("synth", scenes)
+    assert load_goals("collision_test", scenes)[0].shape == (1, 2)
+
+    write_goal_files("DATA_BLOCK/synthset", subsets=("test_private",))
+    table = lstm_cli.main(["--path", "synthset", "--output", *(f"{n}.pkl" for n in names),
+                           "--device", "cpu"])
+    for name in names:
+        assert table.results[f"{name}_modes1"][32] == 3  # every scene scored
+        assert np.isfinite(table.results[f"{name}_modes1"][33:35]).all()

@@ -307,9 +307,13 @@ def test_augmentation_invariants():
     gen = torch.Generator().manual_seed(0)
     rotated = list(common.bucket_batches(data, idx, valid, augment=True, generator=gen))
     noisy = list(common.bucket_batches(data, idx, valid, augment_noise=True, generator=gen))
-    assert len(plain) == 3 and not plain[-1][2][1]  # 5 scenes: the last batch is padded
-    for (xy, mask, scene), (rxy, rmask, rscene), (nxy, nmask, _) in zip(plain, rotated, noisy):
+    assert len(plain) == 3 and not plain[-1].scene_mask[1]  # 5 scenes: the last batch is padded
+    assert not plain[-1].slot_mask[1].any()  # a padded scene has no real slot
+    for (xy, mask, scene, goals, slot), (rxy, rmask, rscene, rgoals, rslot), \
+            (nxy, nmask, _, ngoals, _) in zip(plain, rotated, noisy):
         assert torch.equal(mask, rmask) and torch.equal(scene, rscene) and torch.equal(mask, nmask)
+        assert torch.equal(slot, rslot) and torch.equal(goals, ngoals)
+        assert goals.shape == (2, 4, 2) and not goals.any()  # no goal files: zero goals
         dist = torch.cdist(xy.reshape(-1, 4, 2), xy.reshape(-1, 4, 2))
         rdist = torch.cdist(rxy.reshape(-1, 4, 2), rxy.reshape(-1, 4, 2))
         torch.testing.assert_close(rdist, dist, atol=1e-5, rtol=0)

@@ -62,6 +62,30 @@ def example_batch(s, a, t=21, seed=0):
     return xy, mask
 
 
+def write_goal_files(data_dir, goal_root="goal_files", subsets=("train", "val", "test_private")):
+    """Goal files for the ndjson files of ``data_dir/<subset>/``, as the
+    trainers and the evaluator read them: ``goal_root/<subset>/<file>.pkl``,
+    a dict from pedestrian id to the last position of its track."""
+    import os
+    import pickle
+
+    from trajnetplusplusbaselines_tpu.data import Reader
+
+    for subset in subsets:
+        out = os.path.join(goal_root, subset)
+        os.makedirs(out, exist_ok=True)
+        for name in sorted(os.listdir(os.path.join(data_dir, subset))):
+            if not name.endswith(".ndjson"):
+                continue
+            goals = {}
+            for _, paths in Reader(os.path.join(data_dir, subset, name),
+                                   scene_type="paths").scenes():
+                for path in paths:
+                    goals[path[0].pedestrian] = (path[-1].x, path[-1].y)
+            with open(os.path.join(out, name[:-len(".ndjson")] + ".pkl"), "wb") as f:
+                pickle.dump(goals, f)
+
+
 def flagship_params(seed=0, dtype=np.float64):
     """A JAX D-LSTM (the flagship configuration) with its params, and the
     same params as torch tensors."""
@@ -99,15 +123,90 @@ def with_traced_cell_side(fn, model):
     return run
 
 
+def port_pool(jax_pool):
+    """The port's counterpart of a JAX pool configuration (any of the
+    eleven types' pool classes), built from its attributes."""
+    from trajnetplusplusbaselines_torch.ops import pooling
+    from trajnetplusplusbaselines_torch.utils.checkpoint import pool_from_attributes
+
+    if jax_pool is None:
+        return None
+    return pool_from_attributes(getattr(pooling, type(jax_pool).__name__), vars(jax_pool))
+
+
 def port_model(jax_model):
     """The port's counterpart of a JAX LSTM configuration."""
     from trajnetplusplusbaselines_torch.models.lstm import LSTM
-    from trajnetplusplusbaselines_torch.ops.pooling import GridBasedPooling
 
-    pool = None
-    if jax_model.pool is not None:
-        jp = jax_model.pool
-        pool = GridBasedPooling(type_=jp.type_, hidden_dim=jp.hidden_dim,
-                                cell_side=jp.cell_side, n=jp.n, out_dim=jp.out_dim)
     return LSTM(embedding_dim=jax_model.embedding_dim, hidden_dim=jax_model.hidden_dim,
-                pool=pool)
+                pool=port_pool(jax_model.pool), pool_to_input=jax_model.pool_to_input,
+                goal_dim=jax_model.goal_dim, goal_flag=jax_model.goal_flag)
+
+
+# tiny trainer arguments for every pool type: pool_dim a multiple of neigh
+# (the nearest-neighbour pools embed each of the n slots into pool_dim / n)
+TINY_POOL_ARGS = dict(hidden_dim=16, pool_dim=16, n=4, cell_side=CELL_SIDE, vel_dim=4,
+                      spatial_dim=4, neigh=4, mp_iters=2, latent_dim=4, layer_dims=[8, 8])
+
+# the eleven --type values, and the model variants of the parity tests:
+# name -> (type, make_pool args over TINY_POOL_ARGS, LSTM args)
+POOL_MODELS = {
+    **{t: (t, {}, {}) for t in ("vanilla", "occupancy", "directional", "social",
+                                "dir_social", "hiddenstatemlp", "attentionmlp", "nn",
+                                "nn_lstm", "traj_pool", "nmmp")},
+    "goals": ("directional", {}, {"goal_flag": True, "goal_dim": 6}),
+    "pool_to_input_false": ("directional", {}, {"pool_to_input": False}),
+    "two_layer": ("directional", {"embedding_arch": "two_layer"}, {}),
+    "lstm_layer": ("directional", {"embedding_arch": "lstm_layer"}, {}),
+}
+
+
+def jax_pool_model(name, seed=0, dtype=np.float64):
+    """A tiny JAX LSTM of ``POOL_MODELS[name]``, its params in ``dtype``, and
+    the same params as torch tensors."""
+    import types
+
+    import jax
+    import jax.numpy as jnp
+
+    from trajnetplusplusbaselines_tpu.models.lstm import LSTM
+    from trajnetplusplusbaselines_tpu.ops.pooling import make_pool
+
+    type_, pool_args, lstm_args = POOL_MODELS[name]
+    pool = make_pool(type_, types.SimpleNamespace(**{**TINY_POOL_ARGS, **pool_args}))
+    model = LSTM(pool=pool, embedding_dim=8, hidden_dim=16, **lstm_args)
+    params = jax.tree.map(lambda x: jnp.asarray(x, dtype),
+                          model.init_params(jax.random.PRNGKey(seed)))
+    return model, params, params_from_jax(jax.tree.map(np.asarray, params))
+
+
+def jax_runner(fn, model):
+    """``jax.jit(fn)(model, *args)``; for a grid pool with its cell side
+    traced (``with_traced_cell_side``)."""
+    import jax
+
+    if getattr(model.pool, "cell_side", None) is None:
+        return jax.jit(lambda *args: fn(model, *args))
+    return with_traced_cell_side(fn, model)
+
+
+def pool_batch(s=4, a=5, t=21, seed=0):
+    """Scenes as a bucket holds them, for whole-model parity: xy [t, S, A, 2],
+    mask [t, S, A], goals [S, A, 2], slot_mask [S, A].  Scene 0 is full, with
+    agent 0's goal on its last observed position (a zero goal distance);
+    scene 1 holds a single track; scene 2 has one padded slot; every scene
+    has a late-appearing agent and an agent absent mid-way where it has
+    room."""
+    xy, mask = example_batch(s, a, t=t, seed=seed)
+    num_agents = np.full(s, a)
+    num_agents[1] = 1
+    if s > 2:
+        num_agents[2] = a - 1
+    slot_mask = np.arange(a)[None] < num_agents[:, None]
+    mask &= slot_mask[None]
+    mask[:, 1, 0] = True
+    xy = np.where(mask[..., None], xy, 0.0)
+    rng = np.random.default_rng(seed + 100)
+    goals = np.where(slot_mask[..., None], rng.normal(scale=2.0, size=(s, a, 2)), 0.0)
+    goals[0, 0] = xy[8, 0, 0]
+    return xy, mask, goals, slot_mask

@@ -28,6 +28,14 @@
 // with IEEE division, in that order (the __f*_rn intrinsics are never
 // contracted or rewritten), so neighbours on a cell boundary land in the same
 // cell as in the plain version.  Build without --use_fast_math.
+//
+// The grid stage alone (directional_grid_kernel) takes the grid's side n at
+// run time, up to GRID_MAX_N, and the `front` offset, so it serves every
+// directional grid of the LSTM family: a pool_size sub-division is the same
+// grid at side n * pool_size and cell side cell_side / pool_size, and the
+// blur and the pool_size sum run on its output in PyTorch.  Its winner array
+// is dynamic shared memory of ROWS * n * n ints (64 KB at GRID_MAX_N).  The
+// fused step keeps its compiled widths below: its matmuls depend on them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,6 +55,8 @@ constexpr int NORMAL = 5;
 constexpr int ROWS = 16;           // agent rows per block
 constexpr int THREADS = 256;
 constexpr int HALF_ROWS = ROWS / 2;
+constexpr int GRID_MAX_N = 32;     // largest grid side of the grid stage alone
+constexpr size_t GRID_SMEM_MAX_BYTES = sizeof(int) * ROWS * GRID_MAX_N * GRID_MAX_N;
 
 static_assert(THREADS == POOL, "one thread per grid-embedding column");
 static_assert(THREADS == 2 * H, "two threads per hidden unit");
@@ -71,25 +81,37 @@ struct Scene {
   float constant;
 };
 
+// The grid's geometry: side n and the offset added to the cell coordinates
+// (n/2 on both axes, or n/2 and 0 for a grid in front of the agent).
+struct Geom {
+  int n;
+  float half_x;
+  float half_y;
+};
+
 __device__ __forceinline__ float sigmoidf(float x) { return 1.0f / (1.0f + expf(-x)); }
 
 // Where neighbour j (flat row rj) writes in the grid of agent i (flat row ri),
 // and whether the write is in range (else it writes `constant` into cell 0).
-__device__ __forceinline__ int write_cell(const Scene& sc, int ri, int rj, bool* in_range) {
-  const float half_n = 0.5f * N;
-  float ox = __fadd_rn(__fdiv_rn(__fsub_rn(sc.obs2[2 * rj], sc.obs2[2 * ri]), sc.cell_side), half_n);
-  float oy = __fadd_rn(__fdiv_rn(__fsub_rn(sc.obs2[2 * rj + 1], sc.obs2[2 * ri + 1]), sc.cell_side), half_n);
-  bool ok = sc.p2[ri] && sc.p2[rj] && ox >= 0.0f && ox < (float)N && oy >= 0.0f && oy < (float)N;
+__device__ __forceinline__ int write_cell(const Scene& sc, const Geom& gm, int ri, int rj,
+                                          bool* in_range) {
+  float ox = __fadd_rn(__fdiv_rn(__fsub_rn(sc.obs2[2 * rj], sc.obs2[2 * ri]), sc.cell_side), gm.half_x);
+  float oy = __fadd_rn(__fdiv_rn(__fsub_rn(sc.obs2[2 * rj + 1], sc.obs2[2 * ri + 1]), sc.cell_side), gm.half_y);
+  const float n = (float)gm.n;
+  bool ok = sc.p2[ri] && sc.p2[rj] && ox >= 0.0f && ox < n && oy >= 0.0f && oy < n;
   *in_range = ok;
   // trunc equals floor here: negative values are out of range
-  return ok ? (int)ox * N + (int)oy : 0;
+  return ok ? (int)ox * gm.n + (int)oy : 0;
 }
 
-// Builds the directional grids of rows [row0, row0 + ROWS) into out
-// (row-major [ROWS, GRID_DIM]); winner is shared scratch of ROWS * G ints.
-// Rows past the end get `constant` everywhere.
-__device__ void build_grid(const Scene& sc, int row0, int* winner, float* out) {
-  for (int idx = threadIdx.x; idx < ROWS * G; idx += blockDim.x) winner[idx] = -1;
+// Builds the directional grids of rows [row0, row0 + rows_out) into out
+// (row-major [rows_out, 2 * n * n], channel-major within a row); winner is
+// shared scratch of ROWS * n * n ints.  Rows past the end of the scene batch
+// get `constant` everywhere.
+__device__ __forceinline__ void build_grid(const Scene& sc, const Geom& gm, int row0, int* winner,
+                                           float* out, int rows_out) {
+  const int g_cells = gm.n * gm.n;
+  for (int idx = threadIdx.x; idx < ROWS * g_cells; idx += blockDim.x) winner[idx] = -1;
   __syncthreads();
 
   // every non-self neighbour writes; the highest j wins the cell
@@ -100,13 +122,13 @@ __device__ void build_grid(const Scene& sc, int row0, int* winner, float* out) {
     int i = row % sc.a;
     if (j == i) continue;
     bool in_range;
-    int cell = write_cell(sc, row, row - i + j, &in_range);
-    atomicMax(&winner[r * G + cell], j);
+    int cell = write_cell(sc, gm, row, row - i + j, &in_range);
+    atomicMax(&winner[r * g_cells + cell], j);
   }
   __syncthreads();
 
-  for (int idx = threadIdx.x; idx < ROWS * G; idx += blockDim.x) {
-    int r = idx / G, g = idx - (idx / G) * G;
+  for (int idx = threadIdx.x; idx < rows_out * g_cells; idx += blockDim.x) {
+    int r = idx / g_cells, g = idx - (idx / g_cells) * g_cells;
     int row = row0 + r;
     float vx = sc.constant, vy = sc.constant;
     int w = winner[idx];
@@ -114,7 +136,7 @@ __device__ void build_grid(const Scene& sc, int row0, int* winner, float* out) {
       int i = row % sc.a;
       int rw = row - i + w;
       bool in_range;
-      write_cell(sc, row, rw, &in_range);
+      write_cell(sc, gm, row, rw, &in_range);
       if (in_range) {
         // relative velocity, zero unless both are present at t-1 and t
         bool both = sc.p1[row] && sc.p2[row] && sc.p1[rw] && sc.p2[rw];
@@ -124,21 +146,21 @@ __device__ void build_grid(const Scene& sc, int row0, int* winner, float* out) {
                               __fsub_rn(sc.obs2[2 * row + 1], sc.obs1[2 * row + 1])) : 0.0f;
       }
     }
-    out[r * GRID_DIM + g] = vx;
-    out[r * GRID_DIM + G + g] = vy;
+    out[r * 2 * g_cells + g] = vx;
+    out[r * 2 * g_cells + g_cells + g] = vy;
   }
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(THREADS) directional_grid_kernel(Scene sc, float* grid_out) {
-  __shared__ int winner[ROWS * G];
-  __shared__ float grid[ROWS * GRID_DIM];
+// The grid stage alone: grid_out [S*A, 2 * n * n], written straight to
+// device memory (neighbouring threads write neighbouring cells).
+__global__ void __launch_bounds__(THREADS) directional_grid_kernel(Scene sc, Geom gm,
+                                                                   float* grid_out) {
+  extern __shared__ float smem[];
+  int* winner = reinterpret_cast<int*>(smem);  // [ROWS, n * n]
   int row0 = blockIdx.x * ROWS;
-  build_grid(sc, row0, winner, grid);
-  for (int idx = threadIdx.x; idx < ROWS * GRID_DIM; idx += blockDim.x) {
-    int row = row0 + idx / GRID_DIM;
-    if (row < sc.rows) grid_out[(size_t)row0 * GRID_DIM + idx] = grid[idx];
-  }
+  int rows_out = min(ROWS, sc.rows - row0);
+  build_grid(sc, gm, row0, winner, grid_out + (size_t)row0 * 2 * gm.n * gm.n, rows_out);
 }
 
 struct Weights {
@@ -185,7 +207,8 @@ __global__ void __launch_bounds__(THREADS) fused_step_kernel(
     inp[r * IN + k] = v;
   }
 
-  build_grid(sc, row0, winner, grid);  // ends with __syncthreads
+  // the compiled grid: constant geometry, so the inlined loops fold it
+  build_grid(sc, Geom{N, 0.5f * N, 0.5f * N}, row0, winner, grid, ROWS);  // ends with __syncthreads
 
   // grid embedding: relu(grid @ W_grid + b), thread t owns column t
   {
@@ -271,18 +294,41 @@ __global__ void __launch_bounds__(THREADS) fused_step_kernel(
   }
 }
 
+// Above 48 KB of dynamic shared memory only after opting in, once per device.
+cudaError_t opt_in(const void* kernel, size_t bytes, bool* opted_in) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (!opted_in[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+    opted_in[dev] = true;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
 
 // All tensors [S, A, F] contiguous on the current device; present masks are
 // one byte per agent (torch.bool).  Returns cudaGetLastError() after launch.
+
+// grid_out [S, A, 2 * n * n] for 1 <= n <= GRID_MAX_N; `front` puts the
+// agent on the grid's edge (offsets n/2 and 0) instead of its centre.
 int dlstm_directional_grid(const float* obs1, const float* obs2, const uint8_t* p1,
-                           const uint8_t* p2, float* grid_out, int s, int a,
-                           float cell_side, float constant, void* stream) {
+                           const uint8_t* p2, float* grid_out, int s, int a, int n,
+                           float cell_side, int front, float constant, void* stream) {
+  if (n < 1 || n > GRID_MAX_N) return (int)cudaErrorInvalidValue;
+  static bool opted_in[MAX_DEVICES] = {};
+  cudaError_t err = opt_in((const void*)directional_grid_kernel, GRID_SMEM_MAX_BYTES, opted_in);
+  if (err != cudaSuccess) return (int)err;
   Scene sc{obs1, obs2, p1, p2, s * a, a, cell_side, constant};
+  Geom gm{n, 0.5f * n, front ? 0.0f : 0.5f * n};
   int blocks = (sc.rows + ROWS - 1) / ROWS;
-  directional_grid_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(sc, grid_out);
+  size_t smem = sizeof(int) * ROWS * n * n;
+  directional_grid_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(sc, gm, grid_out);
   return (int)cudaGetLastError();
 }
 
@@ -293,18 +339,9 @@ int dlstm_fused_step(const float* obs1, const float* obs2, const uint8_t* p1,
                      const float* b_gates, const float* w_h2n, const float* b_h2n,
                      float* h_out, float* c_out, float* normal, uint8_t* mask_out,
                      int s, int a, float cell_side, float constant, void* stream) {
-  // above 48 KB of shared memory only after opting in, once per device
   static bool opted_in[MAX_DEVICES] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = opt_in((const void*)fused_step_kernel, FUSED_SMEM_BYTES, opted_in);
   if (err != cudaSuccess) return (int)err;
-  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  if (!opted_in[dev]) {
-    err = cudaFuncSetAttribute(fused_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)FUSED_SMEM_BYTES);
-    if (err != cudaSuccess) return (int)err;
-    opted_in[dev] = true;
-  }
   Scene sc{obs1, obs2, p1, p2, s * a, a, cell_side, constant};
   Weights wt{w_emb, b_emb, w_grid, b_grid, w_ih, w_hh, b_gates, w_h2n, b_h2n};
   int blocks = (sc.rows + ROWS - 1) / ROWS;
@@ -313,12 +350,14 @@ int dlstm_fused_step(const float* obs1, const float* obs2, const uint8_t* p1,
   return (int)cudaGetLastError();
 }
 
-// Compile-time widths, so the binding can check them against the model.
+// Compile-time widths of the fused step, and the grid stage's largest side,
+// so the binding can check them against the model.
 int dlstm_kernel_dims(int* out) {
   out[0] = N;
   out[1] = EMB;
   out[2] = POOL;
   out[3] = H;
+  out[4] = GRID_MAX_N;
   return 0;
 }
 

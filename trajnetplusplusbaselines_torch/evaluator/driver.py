@@ -5,12 +5,18 @@ Port of ``get_predictions`` / ``run_evaluation`` of
 branch (that one imports jax).  Writing and scoring are the JAX package's
 numpy-only ``write_utils`` and ``trajnet_evaluate``, used as they are.
 Skip-if-exists caching, ``--fill_missing`` and ``--write_only`` behave as
-there.
+there, and a predictor whose ``goal_flag`` is set gets the goals of
+``goal_files/test_private/<dataset>.pkl``.  Unlike the JAX loader, a missing
+goal file raises, except for the synthetic ``collision_test`` gate, which
+ships none and takes zero goals.
 """
 
 import os
+import pickle
 import shutil
 from typing import Callable, Dict
+
+import numpy as np
 
 from trajnetplusplusbaselines_tpu.evaluator.driver import list_test_datasets
 from trajnetplusplusbaselines_tpu.evaluator.trajnet_evaluator import trajnet_evaluate
@@ -21,11 +27,31 @@ from trajnetplusplusbaselines_tpu.evaluator.write_utils import (
 )
 
 
-def test_scenes(dataset: str, args):
+GOALS_OPTIONAL = ("collision_test",)  # synthetic gate datasets without goal files
+
+
+def load_goals(dataset: str, scenes, goal_dir: str = "goal_files/test_private"):
+    """Per-scene goals ``[n, 2]`` from ``goal_dir/<dataset>.pkl`` (a dict
+    from pedestrian id to goal), in each scene's path order.  Zero goals for
+    a dataset of ``GOALS_OPTIONAL`` without a file; any other missing file
+    raises."""
+    goal_file = os.path.join(goal_dir, dataset + ".pkl")
+    if not os.path.exists(goal_file) and dataset in GOALS_OPTIONAL:
+        print(f"no goal file for {dataset}; using zero goals")
+        return [np.zeros((len(paths), 2)) for _, _, paths in scenes]
+    with open(goal_file, "rb") as f:
+        goal_dict = pickle.load(f)
+    return [np.array([goal_dict[path[0].pedestrian] for path in paths], dtype=np.float64)
+            for _, _, paths in scenes]
+
+
+def test_scenes(dataset: str, args, goal_flag: bool = False):
     """(dataset file name, scenes, per-scene paths cut at the last observed
-    frame, scene goals) of one test dataset under ``args.path``."""
-    # no goal-conditioned model is ported yet: no goal files to load
+    frame, scene goals) of one test dataset under ``args.path``; the goals
+    are zeros unless ``goal_flag``."""
     dataset_name, scenes, scene_goals = load_test_datasets(dataset, False, args)
+    if goal_flag:
+        scene_goals = load_goals(dataset, scenes)
     processed = [preprocess_test(s, args.obs_length) for _, _, s in scenes]
     return dataset_name, scenes, processed, scene_goals
 
@@ -60,8 +86,11 @@ def get_predictions(predictors: Dict[str, Callable], args) -> None:
             shutil.rmtree(tmp_dir)
         os.makedirs(tmp_dir)
 
+        # per predictor, as the JAX driver resolves it: only a goal model
+        # makes the driver read goal files
+        goal_flag = getattr(predictor, "goal_flag", getattr(args, "goal_flag", False))
         for dataset in todo:
-            dataset_name, scenes, processed, scene_goals = test_scenes(dataset, args)
+            dataset_name, scenes, processed, scene_goals = test_scenes(dataset, args, goal_flag)
             if hasattr(predictor, "predict_dataset"):
                 pred_list = predictor.predict_dataset(processed, scene_goals, args)
             else:

@@ -14,13 +14,18 @@ Layout is scene-major ``[S, A, F]`` contiguous, as in ``models/lstm.py``.
 - ``fused_dlstm_step`` / ``directional_grid`` take tensors on the card to the
   kernel, and tensors on the CPU to the plain version.  A tensor on the card
   launches the kernel or raises; there is no fallback.
+- The fused step is compiled for the flagship's widths (``FUSED_DIMS``); the
+  grid stage alone takes the grid's side at run time, up to ``GRID_MAX_N``,
+  and the ``front`` offset.  ``models/lstm.py`` routes each configuration by
+  these constants before any launch; the first launch checks them against
+  the library.
 - Neither kernel has a backward: the JAX package has no backward kernel to
   port, and the grid needs none (its positions are data or detached).  So
   ``fused_dlstm_step`` raises where autograd would record it
   (``autograd_records``), and ``directional_grid`` raises on positions that
-  require grad.  A training step goes through ``grid_dlstm_step``: the
-  kernel's grid stage, then the grid embedding and ``lstm_step_plain`` under
-  autograd.  ``fused_dlstm_step_plain`` is the same body with the plain grid.
+  require grad.  Where autograd records, a D-LSTM step takes the model's
+  grid route: the kernel's grid stage, then the grid embedding and
+  ``lstm_step_plain`` under autograd.
 - ``fused_dlstm_step_plain`` / ``directional_grid_plain`` are the plain
   PyTorch versions, built from the port's ops (``ops/core.py``,
   ``ops/embeddings.py``, ``ops/pooling/grid.py``).  ``lstm_step_plain`` is
@@ -43,11 +48,16 @@ from ..pooling.grid import GridBasedPooling
 WEIGHT_NAMES = ("w_emb", "b_emb", "w_grid", "b_grid", "w_ih", "w_hh",
                 "b_gates", "w_h2n", "b_h2n")
 
+# what csrc/fused_step.cu is compiled for: the fused step's grid side and
+# widths, and the largest grid side of the grid stage alone
+FUSED_DIMS = {"n": 12, "embedding_dim": 64, "pool_dim": 256, "hidden_dim": 128}
+GRID_MAX_N = 32
 
-def weights_from_params(params: Dict, cell: str = "decoder") -> Dict:
-    """The step's weight dict from LSTM params (encoder or decoder cell).
-    A model without a pool has no ``w_grid`` / ``b_grid``."""
-    weights = {
+
+def lstm_weights(params: Dict, cell: str = "decoder") -> Dict:
+    """``lstm_step_plain``'s weight dict from LSTM params (encoder or
+    decoder cell)."""
+    return {
         "w_emb": params["input_embedding"]["linear"]["w"].contiguous(),
         "b_emb": params["input_embedding"]["linear"]["b"].contiguous(),
         "w_ih": params[cell]["w_ih"].contiguous(),
@@ -56,6 +66,14 @@ def weights_from_params(params: Dict, cell: str = "decoder") -> Dict:
         "w_h2n": params["hidden2normal"]["linear"]["w"].contiguous(),
         "b_h2n": params["hidden2normal"]["linear"]["b"].contiguous(),
     }
+
+
+def weights_from_params(params: Dict, cell: str = "decoder") -> Dict:
+    """The fused step's weight dict from LSTM params (encoder or decoder
+    cell): ``lstm_weights`` and the first layer of the grid embedding as
+    ``w_grid`` / ``b_grid``.  A model without a pool has no ``w_grid`` /
+    ``b_grid``."""
+    weights = lstm_weights(params, cell)
     if "pool" in params:
         weights["w_grid"] = params["pool"]["embedding"][0]["w"].contiguous()
         weights["b_grid"] = params["pool"]["embedding"][0]["b"].contiguous()
@@ -65,35 +83,37 @@ def weights_from_params(params: Dict, cell: str = "decoder") -> Dict:
 def autograd_records(*tensors) -> bool:
     """True when autograd would record an op on ``tensors``: grad mode is on
     and one of them requires grad.  The model's one switch between the fused
-    step and ``grid_dlstm_step``."""
+    step and its grid route."""
     return torch.is_grad_enabled() and any(getattr(t, "requires_grad", False) for t in tensors)
 
 
 # ------------------------------------------------------------ plain versions
 def lstm_step_plain(weights: Mapping, obs1, obs2, present1, present2, h, c,
-                    pooled: Optional[torch.Tensor] = None):
-    """One LSTM step around a pooled input; returns (h' [S,A,H], c' [S,A,H],
-    normal [S,A,5], mask [S,A] bool).
+                    *inputs: torch.Tensor, h_in: Optional[torch.Tensor] = None):
+    """One LSTM step; returns (h' [S,A,H], c' [S,A,H], normal [S,A,5],
+    mask [S,A] bool).
 
-    The LSTM reads ``[input embedding of the masked velocity || pooled]``;
-    h and c keep their old values, and the normal is zero, where the agent
-    is not present at both t-1 and t."""
+    The LSTM reads ``[input embedding of the masked velocity || *inputs]``
+    (a goal embedding, a pooled input) and the recurrent state ``h_in``, by
+    default ``h``; h and c keep their old values, and the normal is zero,
+    where the agent is not present at both t-1 and t."""
     w = weights
     mask = present1 & present2
     m = mask[..., None]
     inp = input_embedding({"linear": {"w": w["w_emb"], "b": w["b_emb"]}}, (obs2 - obs1) * m)
-    if pooled is not None:
-        inp = torch.cat([inp, pooled], dim=-1)
-    gates = inp @ w["w_ih"] + h @ w["w_hh"] + w["b_gates"]
+    if inputs:
+        inp = torch.cat([inp, *inputs], dim=-1)
+    gates = inp @ w["w_ih"] + (h if h_in is None else h_in) @ w["w_hh"] + w["b_gates"]
     h_new, c_new = lstm_pointwise(gates, c)
     normal = hidden2normal({"linear": {"w": w["w_h2n"], "b": w["b_h2n"]}}, h_new)
     return torch.where(m, h_new, h), torch.where(m, c_new, c), normal * m, mask
 
 
 def directional_grid_plain(obs1, obs2, present1, present2, *, n=12, cell_side=0.6,
-                           constant=0.0) -> torch.Tensor:
+                           constant=0.0, front=False) -> torch.Tensor:
     """The flattened directional grid ``[S, A, 2*n*n]``, channel-major."""
-    pool = GridBasedPooling(type_="directional", n=n, cell_side=cell_side, constant=constant)
+    pool = GridBasedPooling(type_="directional", n=n, cell_side=cell_side, constant=constant,
+                            front=front)
     s, a = obs2.shape[:2]
     return pool.make_grid(obs1, obs2, present1, present2).reshape(s, a, -1)
 
@@ -101,22 +121,11 @@ def directional_grid_plain(obs1, obs2, present1, present2, *, n=12, cell_side=0.
 def fused_dlstm_step_plain(obs1, obs2, present1, present2, h, c, weights: Mapping, *,
                            n=12, cell_side=0.6, constant=0.0
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One D-LSTM step; returns (h' [S,A,H], c' [S,A,H], normal [S,A,5],
-    mask [S,A] bool)."""
-    return grid_dlstm_step(obs1, obs2, present1, present2, h, c, weights, n=n,
-                           cell_side=cell_side, constant=constant,
-                           grid_fn=directional_grid_plain)
-
-
-def grid_dlstm_step(obs1, obs2, present1, present2, h, c, weights: Mapping, *,
-                    n=12, cell_side=0.6, constant=0.0, grid_fn=None):
-    """One D-LSTM step that autograd can differentiate: the directional grid
-    (``grid_fn``, by default ``directional_grid``: the kernel's grid stage on
-    the card, no gradient), then ``relu(grid @ W_grid + b)`` and
-    ``lstm_step_plain`` in PyTorch.  Returns what ``fused_dlstm_step``
-    returns."""
-    grid = (grid_fn or directional_grid)(obs1, obs2, present1, present2, n=n,
-                                         cell_side=cell_side, constant=constant)
+    """One D-LSTM step: the plain directional grid, ``relu(grid @ W_grid +
+    b)`` and ``lstm_step_plain``; returns (h' [S,A,H], c' [S,A,H], normal
+    [S,A,5], mask [S,A] bool)."""
+    grid = directional_grid_plain(obs1, obs2, present1, present2, n=n, cell_side=cell_side,
+                                  constant=constant)
     pooled = mlp([{"w": weights["w_grid"], "b": weights["b_grid"]}], grid)
     return lstm_step_plain(weights, obs1, obs2, present1, present2, h, c, pooled)
 
@@ -147,11 +156,21 @@ def _check_inputs(obs1, obs2, present1, present2, *state):
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_shapes():
-    """(n, hidden_dim, {weight name: shape}) the kernel was compiled for."""
+def _library_dims():
+    """The library's ``dlstm_kernel_dims``; raises unless they are the
+    widths this module routes by (``FUSED_DIMS``, ``GRID_MAX_N``)."""
     from . import build
 
-    k_n, k_emb, k_pool, k_hidden = build.kernel_dims()
+    dims = build.kernel_dims()
+    want = (*FUSED_DIMS.values(), GRID_MAX_N)
+    if dims != want:
+        raise RuntimeError(f"the kernel library reports dims {dims}, the wrapper expects {want}")
+    return dims
+
+
+def _kernel_shapes():
+    """(n, hidden_dim, {weight name: shape}) the fused step was compiled for."""
+    k_n, k_emb, k_pool, k_hidden, _ = _library_dims()
     return k_n, k_hidden, {
         "w_emb": (2, k_emb - 2), "b_emb": (k_emb - 2,),
         "w_grid": (2 * k_n * k_n, k_pool), "b_grid": (k_pool,),
@@ -203,26 +222,29 @@ def check_weights(weights: Mapping, device) -> KernelWeights:
 
 
 def directional_grid(obs1, obs2, present1, present2, *, n=12, cell_side=0.6,
-                     constant=0.0) -> torch.Tensor:
-    """The flattened directional grid ``[S, A, 2*n*n]``: the kernel's grid
-    stage on the card, the plain version on the CPU.  It has no gradient, so
-    positions that require grad raise."""
+                     constant=0.0, front=False) -> torch.Tensor:
+    """The flattened directional grid ``[S, A, 2*n*n]`` of side ``n`` (1 to
+    ``GRID_MAX_N``), with the agent at the grid's centre or, with ``front``,
+    on its edge: the kernel's grid stage on the card, the plain version on
+    the CPU.  It has no gradient, so positions that require grad raise."""
     if obs1.requires_grad or obs2.requires_grad:
         raise ValueError("directional_grid has no gradient: pass detached positions")
     if obs2.device.type == "cpu":
         return directional_grid_plain(obs1, obs2, present1, present2, n=n,
-                                      cell_side=cell_side, constant=constant)
+                                      cell_side=cell_side, constant=constant, front=front)
     if obs2.device.type != "cuda":
         raise ValueError(f"no kernel for device {obs2.device}")
     from . import build
 
     s, a = _check_inputs(obs1, obs2, present1, present2)
-    _check_n(n)
+    grid_max_n = _library_dims()[4]
+    if not 1 <= n <= grid_max_n:
+        raise ValueError(f"the grid stage takes 1 <= n <= {grid_max_n}, got n={n}")
     out = torch.empty((s, a, 2 * n * n), dtype=torch.float32, device=obs2.device)
     with torch.cuda.device(obs2.device):
         status = build.load_library().dlstm_directional_grid(
             obs1.data_ptr(), obs2.data_ptr(), present1.data_ptr(), present2.data_ptr(),
-            out.data_ptr(), s, a, float(cell_side), float(constant),
+            out.data_ptr(), s, a, n, float(cell_side), int(front), float(constant),
             torch.cuda.current_stream().cuda_stream,
         )
     build.check(status, "directional_grid")
@@ -242,7 +264,7 @@ def fused_dlstm_step(obs1, obs2, present1, present2, h, c, weights: Mapping, *, 
     backward, so it raises where autograd would record it."""
     if autograd_records(obs1, obs2, h, c, *weights.values()):
         raise RuntimeError("fused_dlstm_step has no backward: run it under torch.no_grad(), "
-                           "or take grid_dlstm_step where autograd records")
+                           "or take the model's grid route where autograd records")
     if obs2.device.type == "cpu":
         return fused_dlstm_step_plain(obs1, obs2, present1, present2, h, c, weights,
                                       n=n, cell_side=cell_side, constant=constant)

@@ -4,14 +4,15 @@ Adam and the StepLR schedule.
 Port of the host parts of ``trajnetplusplusbaselines_tpu/trainers/common.py``
 (that module imports optax, so it is reimplemented here, not imported):
 
-- ``SceneDataset``: scenes as NaN-padded arrays, ``drop_distant``-filtered
-  once at load;
-- ``ResidentDataset``: per (T, A-bucket) tensors on the device, with the JAX
-  package's ``epoch_plan``: the same bucket order and the same
-  ``rng.permutation`` calls, so an epoch visits the same batches;
+- ``SceneDataset``: scenes as NaN-padded arrays and their goals,
+  ``drop_distant``-filtered once at load;
+- ``ResidentDataset``: per (T, A-bucket) tensors on the device, goals
+  included, with the JAX package's ``epoch_plan``: the same bucket order and
+  the same ``rng.permutation`` calls, so an epoch visits the same batches;
 - ``bucket_batches``: the epoch runner's loop over one bucket's plan as a
-  Python loop, with rotation / neighbour-noise augmentation drawn on the
-  device from a ``torch.Generator``;
+  Python loop, with rotation (of the scenes and their goals) and
+  neighbour-noise augmentation drawn on the device from a
+  ``torch.Generator``, yielding each batch's goals and slot mask;
 - ``make_optimizer`` / ``clip_by_global_norm`` / ``set_lr``: optax's
   ``clip_by_global_norm -> add_decayed_weights -> scale_by_adam ->
   scale_by_learning_rate`` as a global-norm clip written to optax's formula
@@ -26,7 +27,7 @@ import json
 import logging
 import socket
 import sys
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,15 +39,24 @@ NOISE_THRESH = 0.02  # --augment_noise: uniform noise bound in metres
 
 
 class SceneDataset:
-    """Preprocessed scenes held as arrays ``[T, n, 2]``, NaN where absent."""
+    """Preprocessed scenes held as arrays ``[T, n, 2]``, NaN where absent,
+    and their goals ``[n, 2]``: from ``goals_dict`` (``prepare_data``'s,
+    by file and scene id), else zeros.  Goals are filtered and centred with
+    their scene."""
 
-    def __init__(self, scenes, obs_length: int, normalize_scene: bool):
+    def __init__(self, scenes, obs_length: int, normalize_scene: bool, goals_dict=None):
         self.xys: List[np.ndarray] = []
-        for _filename, _scene_id, paths in scenes:
-            xy, _ = augmentation.drop_distant(Reader.paths_to_xy(paths))
+        self.goals: List[np.ndarray] = []
+        for filename, scene_id, paths in scenes:
+            xy = Reader.paths_to_xy(paths)
+            goal = (np.array(goals_dict[filename][scene_id]) if goals_dict is not None
+                    else np.zeros((xy.shape[1], 2)))
+            xy, keep = augmentation.drop_distant(xy)
+            goal = goal[keep]
             if normalize_scene:
-                xy, _, _ = augmentation.center_scene(xy, obs_length)
+                xy, _, _, goal = augmentation.center_scene(xy, obs_length, goals=goal)
             self.xys.append(xy.astype(np.float64))
+            self.goals.append(goal.astype(np.float64))
 
     def __len__(self):
         return len(self.xys)
@@ -54,8 +64,9 @@ class SceneDataset:
 
 class ResidentDataset:
     """Scenes resident on ``device``, one dense tensor set per (T, A-bucket):
-    ``xs [N, T, A, 2]`` float32, ``mask [N, T, A]`` bool, ``num_agents [N]``.
-    Per epoch the host makes only the shuffled batch plan."""
+    ``xs [N, T, A, 2]`` float32, ``mask [N, T, A]`` bool, ``goals [N, A, 2]``
+    float32, ``num_agents [N]``.  Per epoch the host makes only the shuffled
+    batch plan."""
 
     def __init__(self, dataset: SceneDataset, device,
                  buckets: Sequence[int] = batching.DEFAULT_AGENT_BUCKETS):
@@ -69,15 +80,18 @@ class ResidentDataset:
         for (t, a), ids in sorted(by_key.items()):
             xs = np.zeros((len(ids), t, a, 2), dtype=np.float32)
             mask = np.zeros((len(ids), t, a), dtype=bool)
+            goals = np.zeros((len(ids), a, 2), dtype=np.float32)
             num_agents = np.zeros((len(ids),), dtype=np.int64)
             for j, i in enumerate(ids):
                 xy = dataset.xys[i]
                 n = xy.shape[1]
                 xs[j, :, :n], mask[j, :, :n] = batching.nan_to_mask(xy)
+                goals[j, :n] = dataset.goals[i]
                 num_agents[j] = n
             self.buckets[(t, a)] = {
                 "xs": torch.from_numpy(xs).to(device),
                 "mask": torch.from_numpy(mask).to(device),
+                "goals": torch.from_numpy(goals).to(device),
                 "num_agents": torch.from_numpy(num_agents).to(device),
             }
 
@@ -104,34 +118,47 @@ def rotate(xy: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
     return torch.stack([x * ct - y * st, x * st + y * ct], dim=-1)
 
 
+class Batch(NamedTuple):
+    """One training batch, in the order ``Trainer.train_step`` takes it."""
+
+    xy: torch.Tensor  # [T, S, A, 2]
+    mask: torch.Tensor  # [T, S, A] bool
+    scene_mask: torch.Tensor  # [S] bool: the scene is real
+    goals: torch.Tensor  # [S, A, 2]
+    slot_mask: torch.Tensor  # [S, A] bool: the slot is a real track of a real scene
+
+
 def bucket_batches(data: Dict[str, torch.Tensor], idx: np.ndarray, valid: np.ndarray, *,
                    augment: bool = False, augment_noise: bool = False, obs_length: int = 9,
-                   generator: Optional[torch.Generator] = None
-                   ) -> Iterator[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
-    """Yield ``(xy [T, S, A, 2], mask [T, S, A], scene_mask [S])`` for each
-    batch of one bucket's plan, on the bucket's device.
+                   generator: Optional[torch.Generator] = None) -> Iterator[Batch]:
+    """Yield a ``Batch`` for each batch of one bucket's plan, on the bucket's
+    device.
 
     Augmentation is drawn once for the whole bucket, as in the JAX epoch
-    runner: a uniform rotation of every scene and, with ``augment_noise``,
-    uniform noise in +-``NOISE_THRESH`` on the neighbours' observed frames.
-    Padded scenes keep scene 0's positions with every mask off."""
-    xs, mask, num_agents = data["xs"], data["mask"], data["num_agents"]
+    runner: a uniform rotation of every scene and its goals and, with
+    ``augment_noise``, uniform noise in +-``NOISE_THRESH`` on the
+    neighbours' observed frames.  Padded scenes keep scene 0's positions and
+    goals with every mask off, their slots included."""
+    xs, mask, goals, num_agents = data["xs"], data["mask"], data["goals"], data["num_agents"]
     device = xs.device
     if augment:
         theta = torch.rand(xs.shape[0], generator=generator, device=device,
                            dtype=xs.dtype) * (2.0 * np.pi)
         xs = rotate(xs, theta[:, None, None])
+        goals = rotate(goals, theta[:, None])
     if augment_noise:
         noise = torch.rand(xs[:, :obs_length, 1:].shape, generator=generator, device=device,
                            dtype=xs.dtype) * (2.0 * NOISE_THRESH) - NOISE_THRESH
         xs = xs.clone()
         xs[:, :obs_length, 1:] += noise
+    slot_all = torch.arange(xs.shape[2], device=device)[None] < num_agents[:, None]  # [N, A]
     idx = torch.from_numpy(idx).to(device)
     valid = torch.from_numpy(valid).to(device)
     for i, v in zip(idx, valid):
         xy = xs[i].transpose(0, 1).contiguous()
         m = mask[i].transpose(0, 1) & v[None, :, None]
-        yield xy, m.contiguous(), (num_agents[i] > 0) & v
+        yield Batch(xy, m.contiguous(), (num_agents[i] > 0) & v, goals[i].contiguous(),
+                    slot_all[i] & v[:, None])
 
 
 # ------------------------------------------------------------------ optimizer

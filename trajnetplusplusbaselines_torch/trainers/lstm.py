@@ -1,26 +1,32 @@
 """Command-line LSTM trainer.
 
 Port of ``trajnetplusplusbaselines_tpu/trainers/lstm.py``: the same flags
-and defaults, output naming (``OUTPUT_BLOCK/<path>/lstm_<type>_<o>.pkl``),
+and defaults, every ``--type`` and ``--goals``, output naming
+(``OUTPUT_BLOCK/<path>/lstm_<type>_<o>.pkl``, ``lstm_goals_...`` with goals),
 JSON log records (process / train / train-epoch / val-epoch), checkpoints
 every ``save_every`` epochs and the three restore modes, plus ``--device``
 (default ``cuda``; it raises where no card is present, and never trains on
 another device than the one asked for).  JAX's ``--cpu`` is ``--device cpu``.
 
-One train step is a teacher-forced ``LSTM.forward`` under autograd, the
-primary-only loss (x batch size, with an optional collision term), its
-gradients, the optional global-norm clip and an Adam update.  The epoch
-visits the buckets of ``ResidentDataset.epoch_plan``, batch by batch, with
-the losses kept on the device and read once at the end of the epoch.  On
-the card a D-LSTM step launches the grid stage of the fused kernel
-(``ops/cuda/fused_step.directional_grid``) once per recurrence step, 19
-times per train step; validation records no autograd, so its teacher-forced
-pass and its free rollout launch the whole fused step.
+One train step is a teacher-forced ``LSTM.forward`` under autograd, with
+each batch's goals (``--goals``: ``goal_files/{train,val}/<file>.pkl``, as
+the JAX trainer reads them) and slot mask, the primary-only loss (x batch
+size, with an optional collision term), its gradients, the optional
+global-norm clip and an Adam update.  The epoch visits the buckets of
+``ResidentDataset.epoch_plan``, batch by batch, with the losses kept on the
+device and read once at the end of the epoch.
 
-Not ported, and refused with the ROADMAP item that ports them: ``--goals``,
-``--obs_dropout``, ``--bf16``, ``--remat``, ``--dp`` / ``--tp`` above 1, the
-pool types other than vanilla, occupancy and directional.  ``--orbax`` is
-refused for good (ROADMAP, "Do not port").
+Where each step runs is ``models/lstm.LSTM.route``.  On the card every
+directional grid within the grid stage's range (a goal D-LSTM, other
+embeddings, other n) launches the grid stage of the fused kernel
+(``ops/cuda/fused_step.directional_grid``) once per recurrence step, 19 times
+per train step, in training and in validation; validation records no
+autograd, so a flagship D-LSTM's teacher-forced pass and free rollout launch
+the whole fused step instead.  The other pools run in PyTorch.
+
+Not ported, and refused with the ROADMAP item that ports them:
+``--obs_dropout``, ``--bf16``, ``--remat``, ``--dp`` / ``--tp`` above 1.
+``--orbax`` is refused for good (ROADMAP, "Do not port").
 
 Usage:
     python -m trajnetplusplusbaselines_torch.trainers.lstm --path trajdata \
@@ -118,24 +124,28 @@ class Trainer:
                                          self.col_distance)
         return loss * self.batch_size
 
-    def _forward_train(self, params, xy, mask, start_length):
+    def _forward_train(self, params, xy, mask, start_length, goals, slot_mask):
         return self.model.forward(
             params, xy[start_length:self.obs_length], mask[start_length:self.obs_length],
             prediction_truth=xy[self.obs_length:self.seq_length - 1],
             prediction_truth_mask=mask[self.obs_length:self.seq_length - 1],
+            goals=goals, slot_mask=slot_mask,
         )
 
-    def loss_and_grads(self, xy, mask, scene_mask):
+    def loss_and_grads(self, xy, mask, scene_mask, goals=None, slot_mask=None):
         """The teacher-forced loss of one batch and its gradient for every
-        leaf (zeros for a leaf the loss does not reach, as in JAX)."""
-        rel, pred, valid = self._forward_train(self.params, xy, mask, self.start_length)
+        leaf (zeros for a leaf the loss does not reach, as in JAX).  goals
+        [S, A, 2] and slot_mask [S, A] as ``LSTM.forward`` takes them."""
+        rel, pred, valid = self._forward_train(self.params, xy, mask, self.start_length,
+                                               goals, slot_mask)
         loss = self._loss_from_outputs(rel, pred, valid, xy, mask, scene_mask)
         grads = torch.autograd.grad(loss, self.leaves, materialize_grads=True)
         return loss.detach(), grads
 
-    def train_step(self, xy, mask, scene_mask):
-        """One optimizer step on one batch; returns the loss, on the device."""
-        loss, grads = self.loss_and_grads(xy, mask, scene_mask)
+    def train_step(self, xy, mask, scene_mask, goals=None, slot_mask=None):
+        """One optimizer step on one batch (a ``common.Batch``'s fields);
+        returns the loss, on the device."""
+        loss, grads = self.loss_and_grads(xy, mask, scene_mask, goals, slot_mask)
         if self.clip_grad:
             grads = clip_by_global_norm(grads, self.clip_grad)
         for leaf, grad in zip(self.leaves, grads):
@@ -190,7 +200,7 @@ class Trainer:
         t0 = time.time()
         plan = resident.epoch_plan(self.batch_size, self.rng, shuffle=True)
         data_time = time.time() - t0
-        losses = [self.train_step(xy, mask, scene) for xy, mask, scene in
+        losses = [self.train_step(*batch) for batch in
                   self._batches(resident, plan, self.augment, self.augment_noise)]
         losses = torch.stack(losses).cpu().numpy() if losses else np.zeros(0)  # sync point
         n_batches = len(losses)
@@ -220,12 +230,13 @@ class Trainer:
         sl = self.start_length
         val_losses, test_losses = [], []
         with torch.no_grad():
-            for xy, mask, scene in self._batches(resident, plan):
-                outputs = self._forward_train(self.params, xy, mask, sl)
+            for xy, mask, scene, goals, slot in self._batches(resident, plan):
+                outputs = self._forward_train(self.params, xy, mask, sl, goals, slot)
                 val_losses.append(self._loss_from_outputs(*outputs, xy, mask, scene))
                 outputs = self.model.forward(self.params, xy[sl:self.obs_length],
                                              mask[sl:self.obs_length],
-                                             n_predict=self.pred_length)
+                                             n_predict=self.pred_length, goals=goals,
+                                             slot_mask=slot)
                 test_losses.append(self._loss_from_outputs(*outputs, xy, mask, scene))
         val_loss = float(torch.stack(val_losses).sum()) if val_losses else 0.0
         test_loss = float(torch.stack(test_losses).sum()) if test_losses else 0.0
@@ -305,10 +316,9 @@ def add_arguments(parser, default_epochs=25):
 def refuse_unported(args) -> None:
     """Raise on a flag whose path the port does not have, before anything runs."""
     refused = [
-        (args.goals, "--goals is not ported yet (ROADMAP Queue 1 item 2, the goal_flag path)"),
-        (args.obs_dropout, "--obs_dropout is not ported yet (ROADMAP Queue 1 item 11)"),
-        (args.bf16 or args.remat, "--bf16 and --remat are not ported yet (ROADMAP Queue 1 item 7)"),
-        (args.dp * args.tp > 1, "--dp / --tp above 1 are not ported yet (ROADMAP Queue 1 item 10)"),
+        (args.obs_dropout, "--obs_dropout is not ported yet (ROADMAP Queue 1 item 9)"),
+        (args.bf16 or args.remat, "--bf16 and --remat are not ported yet (ROADMAP Queue 1 item 5)"),
+        (args.dp * args.tp > 1, "--dp / --tp above 1 are not ported yet (ROADMAP Queue 1 item 8)"),
         (args.orbax, "--orbax is not ported: the port writes pickle sidecars only "
                      "(ROADMAP, 'Do not port')"),
     ]
@@ -326,13 +336,14 @@ def main(epochs=25, argv=None):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device} asked for, but CUDA is not available")
-    pool = make_pool(args.type, args)  # raises on an unported pool type
+    pool = make_pool(args.type, args)
 
     random.seed(args.seed)
     np.random.seed(args.seed)
 
     os.makedirs(f"OUTPUT_BLOCK/{args.path}", exist_ok=True)
-    args.output = f"OUTPUT_BLOCK/{args.path}/lstm_{args.type}_{args.output}.pkl"
+    prefix = "lstm_goals" if args.goals else "lstm"
+    args.output = f"OUTPUT_BLOCK/{args.path}/{prefix}_{args.type}_{args.output}.pkl"
 
     setup_logging(args.output, append=bool(args.load_full_state))
     log_process_record(args, VERSION)
@@ -345,13 +356,13 @@ def main(epochs=25, argv=None):
         args.load_state = args.load_full_state
 
     data_path = os.path.join(args.data_root, args.path)
-    train_scenes, _, _ = prepare_data(data_path, subset="/train/", sample=args.sample,
-                                      goals=False)
-    val_scenes, _, val_flag = prepare_data(data_path, subset="/val/", sample=args.sample,
-                                           goals=False)
+    train_scenes, train_goals, _ = prepare_data(data_path, subset="/train/",
+                                                sample=args.sample, goals=args.goals)
+    val_scenes, val_goals, val_flag = prepare_data(data_path, subset="/val/",
+                                                   sample=args.sample, goals=args.goals)
 
     model = LSTM(pool=pool, embedding_dim=args.coordinate_embedding_dim,
-                 hidden_dim=args.hidden_dim, goal_dim=args.goal_dim)
+                 hidden_dim=args.hidden_dim, goal_flag=args.goals, goal_dim=args.goal_dim)
     params = model.init_params(torch.Generator().manual_seed(args.seed), device=device)
 
     start_epoch = 0
@@ -380,12 +391,12 @@ def main(epochs=25, argv=None):
         if not ckpt.is_port_opt_state(state["opt_state"]):
             raise NotImplementedError(
                 "--load-full-state from a JAX sidecar (optax state) is not ported yet "
-                "(ROADMAP Queue 1 item 11); --load-state takes its weights")
+                "(ROADMAP Queue 1 item 9); --load-state takes its weights")
         adam_state_from_numpy(trainer.optimizer, trainer.paths, state["opt_state"])
         start_epoch = state["epoch"]
 
-    train_ds = SceneDataset(train_scenes, args.obs_length, args.normalize_scene)
-    val_ds = (SceneDataset(val_scenes, args.obs_length, args.normalize_scene)
+    train_ds = SceneDataset(train_scenes, args.obs_length, args.normalize_scene, train_goals)
+    val_ds = (SceneDataset(val_scenes, args.obs_length, args.normalize_scene, val_goals)
               if val_scenes is not None else None)
     trainer.loop(train_ds, val_ds, args.output, epochs=args.epochs, start_epoch=start_epoch)
     return trainer

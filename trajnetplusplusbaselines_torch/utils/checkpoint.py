@@ -5,10 +5,11 @@ The JAX package's ``save_predictor`` writes ``{"predictor_class", "model",
 (``trajnetplusplusbaselines_tpu/utils/checkpoint.py``), and beside it the
 sidecar ``<out>.state``: ``{epoch, params, opt_state_hyper, opt_state}``.
 ``load_predictor`` reads the predictor through an unpickler that maps the
-configuration classes of either package to plain stubs (unpickling restores
-``__dict__`` and bypasses ``__init__``), then builds the port's model from
-the restored attributes.  Any other class, predictor or configuration
-raises.  ``save_predictor`` writes the same layout with the port's
+configuration classes of either package (the LSTM and every pool class) to
+plain stubs (unpickling restores ``__dict__`` and bypasses ``__init__``),
+then builds the port's model from the restored attributes.  An SGAN or VAE
+pickle raises ``NotImplementedError``; any other class raises
+``UnpicklingError``.  ``save_predictor`` writes the same layout with the port's
 configuration, and the sidecar when given a state.
 
 The port's sidecar holds numpy only; its ``opt_state`` is the torch Adam
@@ -18,6 +19,7 @@ JAX sidecar's ``opt_state`` is optax's state, a tree of NamedTuples:
 the weights of either package's sidecar load.
 """
 
+import inspect
 import pickle
 from typing import Any, Tuple
 
@@ -25,7 +27,7 @@ import numpy as np
 import torch
 
 from ..models.lstm import LSTM, LSTMPredictor
-from ..ops.pooling.grid import GridBasedPooling
+from ..ops import pooling
 from .convert import params_from_jax, params_to_numpy
 
 
@@ -33,16 +35,32 @@ class _LSTMConfig:
     pass
 
 
-class _GridConfig:
-    pass
+def _pool_stub(port_class):
+    """A stub class for the pickled configuration of one pool class."""
+    return type(f"_{port_class.__name__}Config", (), {"port_class": port_class})
 
 
-_CONFIG_CLASSES = {
-    ("trajnetplusplusbaselines_tpu.models.lstm", "LSTM"): _LSTMConfig,
-    ("trajnetplusplusbaselines_torch.models.lstm", "LSTM"): _LSTMConfig,
-    ("trajnetplusplusbaselines_tpu.ops.pooling.grid", "GridBasedPooling"): _GridConfig,
-    ("trajnetplusplusbaselines_torch.ops.pooling.grid", "GridBasedPooling"): _GridConfig,
+_POOL_CLASSES = {
+    "grid": (pooling.GridBasedPooling,),
+    "nongrid": (pooling.HiddenStateMLPPooling, pooling.AttentionMLPPooling,
+                pooling.NearestNeighborMLP, pooling.NearestNeighborLSTM,
+                pooling.TrajectronPooling, pooling.NMMP),
 }
+_CONFIG_CLASSES = {
+    (f"{package}.models.lstm", "LSTM"): _LSTMConfig
+    for package in ("trajnetplusplusbaselines_tpu", "trajnetplusplusbaselines_torch")
+}
+_CONFIG_CLASSES.update({
+    (f"{package}.ops.pooling.{module}", cls.__name__): _pool_stub(cls)
+    for package in ("trajnetplusplusbaselines_tpu", "trajnetplusplusbaselines_torch")
+    for module, classes in _POOL_CLASSES.items() for cls in classes
+})
+# the JAX package's other model families, not ported yet
+_UNPORTED_MODULES = ("trajnetplusplusbaselines_tpu.models.sgan",
+                     "trajnetplusplusbaselines_tpu.models.vae")
+# constructor argument -> the attribute the configuration keeps it under,
+# where the two differ
+_ATTRIBUTE_OF = {"no_vel": "no_velocity"}
 _NUMPY_NAMES = {"_reconstruct", "ndarray", "dtype", "scalar", "_frombuffer"}
 
 
@@ -58,6 +76,8 @@ class _Unpickler(pickle.Unpickler):
     def find_class(self, module, name):
         if (module, name) in _CONFIG_CLASSES:
             return _CONFIG_CLASSES[(module, name)]
+        if module in _UNPORTED_MODULES:
+            raise NotImplementedError(f"{module}.{name} is not ported yet")
         if (module == "numpy" or module.startswith("numpy.")) and name in _NUMPY_NAMES:
             return super().find_class(module, name)
         raise pickle.UnpicklingError(f"pickle holds unsupported class {module}.{name}")
@@ -70,19 +90,29 @@ class _StateUnpickler(_Unpickler):
         return super().find_class(module, name)
 
 
+def pool_from_attributes(port_class, attrs: dict):
+    """A pool of ``port_class`` from the attributes of a pool configuration
+    of either package: its constructor's arguments read from them.  An
+    attribute that an older pickle lacks takes the constructor's default
+    (``logit_cap``); attributes that are not arguments (the JAX grid's
+    ``scatter_impl``) are dropped."""
+    kwargs = {}
+    for name, param in inspect.signature(port_class).parameters.items():
+        attr = _ATTRIBUTE_OF.get(name, name)
+        if attr in attrs:
+            kwargs[name] = attrs[attr]
+        elif param.default is inspect.Parameter.empty:
+            raise ValueError(f"{port_class.__name__} configuration has no {attr!r}")
+    return port_class(**kwargs)
+
+
 def _pool_from_config(cfg):
     if cfg is None:
         return None
-    if not isinstance(cfg, _GridConfig):
+    port_class = getattr(type(cfg), "port_class", None)
+    if port_class is None:
         raise NotImplementedError(f"pool {type(cfg).__name__} is not ported yet")
-    d = vars(cfg)
-    # the constructor raises on every configuration that is not ported
-    return GridBasedPooling(
-        type_=d["type_"], hidden_dim=d["hidden_dim"], cell_side=d["cell_side"], n=d["n"],
-        out_dim=d["out_dim"], pool_size=d["pool_size"], blur_size=d["blur_size"],
-        front=d["front"], embedding_arch=d["embedding_arch"], constant=d["constant"],
-        norm=d["norm"], layer_dims=d["layer_dims"], latent_dim=d["latent_dim"],
-    )
+    return pool_from_attributes(port_class, vars(cfg))
 
 
 def _model_from_config(cfg) -> LSTM:
