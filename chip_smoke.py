@@ -11,11 +11,20 @@ PyTorch built for CUDA (no jax needed).  Phases, one line each:
 2. grid: the kernel's directional grid against the plain grid, bit-exact,
    at agent buckets 1..150 with ~16k agent rows each;
 3. step: the fused step kernel against the plain step, encoder and decoder
-   weights, f32, atol 2e-5 / rtol 1e-4 (summation order over K <= 320);
+   weights, f32, atol 2e-5 / rtol 1e-4 (3xTF32 tensor-core products and
+   their summation order over K <= 448), mask bit-exact, at the buckets and
+   at row counts off the kernel's 64-row tile (3 x 7, 1 x 1, 65 x 8);
 4. rollout: ``LSTM.forward(n_predict=12)`` at full width, kernel against
    plain, positions within 1e-3 m, 19 kernel launches per rollout, and the
    per-step and per-rollout times of both (CUDA events, after warm-up), at
    the CLI's own batch (64 scenes of 8 agents) and two larger ones;
+   (b) the fused kernel's and the grid stage's device time per launch
+   (``torch.profiler``) at those three shapes, their bounds (3xTF32 on the
+   tensor cores or the bytes, whichever is larger; the grid's bytes) and
+   the share of them reached, the library yardstick (the three products
+   alone through ``torch.addmm``, f32 with TF32 off and on), and the weight
+   preparation's cost per rollout; the build line counts the kernels'
+   SASS instructions (``cuobjdump``) and fails without a tensor-core one;
 5. serve (the main path): a synthetic TrajNet++ split written to a temporary
    directory, a seeded D-LSTM saved with ``save_predictor``, and
    ``evaluator.lstm_cli.main([... "--device", "cuda"])`` predicting, writing
@@ -98,8 +107,21 @@ ROLLOUTS = ((BATCH_SCENES, 8), (1024, 8), (256, 32))  # (scenes, agents); first:
 PROFILE_ROLLOUTS = ((64, 8), (1024, 8), (8192, 8), (65536, 8), (256, 32), (2048, 32))
 # multiply-adds x 2 per agent row: input embedding, grid embedding, gates, head
 FLOP_PER_ROW = 2 * (2 * 62 + 288 * 256 + 320 * 512 + 128 * 512 + 128 * 5)
+# the fused step's bound: the three products run as 3xTF32 on the tensor
+# cores, the rest in f32 on CUDA cores; bytes are each input read once and
+# each output written once (positions, presence, h and c in; h', c', the
+# normal and the mask out; the f32 weights once)
+TENSOR_MACS_PER_ROW = 288 * 256 + 320 * 512 + 128 * 512
+CUDA_FLOP_PER_ROW = 2 * (2 * 62 + 128 * 5)
+STEP_BYTES_PER_ROW = 2 * 8 + 2 + 2 * 128 * 4 + 2 * 128 * 4 + 5 * 4 + 1
+WEIGHT_BYTES = 4 * (3 * 62 + 288 * 256 + 256 + 448 * 512 + 512 + 128 * 5 + 5)
+# NVIDIA H100 SXM data sheet, dense: TF32 tensor cores, f32 CUDA cores, HBM
+PEAK_TF32, PEAK_F32, PEAK_BYTES = 495e12, 67e12, 3.35e12
+DEVICE_SHAPES = ((BATCH_SCENES, 8), (1024, 8), (256, 32))  # (scenes, agents) of phase 4b
+STEP_EDGES = ((3, 7), (1, 1), (65, 8))  # phase 3: below one tile, one row, a partial last tile
 SERVE_PASSES = 5
 CELL_SIDE, N = 0.6, 12
+GRID_BYTES_PER_ROW = 2 * 8 + 2 + 2 * N * N * 4  # the grid stage: positions, presence in; grid out
 STEP_ATOL, STEP_RTOL = 2e-5, 1e-4
 POSITION_ATOL = 1e-3
 TRAIN_BATCH, TRAIN_EPOCHS = 8, 2  # the trainer's default batch
@@ -126,6 +148,32 @@ POOL_SPLIT = (320, 96, 64)  # train, val, test scenes
 NEIGHBOUR_GAP = 1e-4  # metres between an agent's nearest neighbour distances
 
 
+def step_bound(rows):
+    """(ms, "operations" or "bytes"): the least time the card could take for
+    one fused step over ``rows`` agent rows."""
+    ops_s = 6 * TENSOR_MACS_PER_ROW * rows / PEAK_TF32 + CUDA_FLOP_PER_ROW * rows / PEAK_F32
+    bytes_s = (STEP_BYTES_PER_ROW * rows + WEIGHT_BYTES) / PEAK_BYTES
+    return 1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes"
+
+
+def grid_bound_ms(rows):
+    """The least time for the grid stage over ``rows`` rows: its bytes."""
+    return 1e3 * GRID_BYTES_PER_ROW * rows / PEAK_BYTES
+
+
+def host_ms(fn, reps=20, warmup=2) -> float:
+    """Mean milliseconds of fn on the host's clock, the card synchronised at
+    the end (for work whose cost is the host's)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
 def say(phase, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
@@ -136,6 +184,31 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def sass_counts(library, ops=("HGMMA", "HMMA", "FFMA", "UBLKCP")):
+    """{kernel: {op: count}} of the built library's SASS (``cuobjdump
+    -sass``), for the kernels of ``csrc``; None where the toolkit has no
+    cuobjdump."""
+    from trajnetplusplusbaselines_torch.ops.cuda import build
+
+    tool = Path(build._nvcc()).parent / "cuobjdump"  # beside the nvcc that built it
+    if not tool.exists():
+        return None
+    out = subprocess.run([str(tool), "-sass", str(library)], capture_output=True, text=True,
+                         check=True, timeout=120).stdout
+    counts, kernel = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            kernel = next((k for k in ("fused_step_kernel", "directional_grid_kernel")
+                           if k in name), name)
+            counts[kernel] = {}
+        elif kernel is not None:
+            for op in ops:
+                if op in line:
+                    counts[kernel][op] = counts[kernel].get(op, 0) + 1
+    return counts
 
 
 def time_ms(fn, reps=20, warmup=3) -> float:
@@ -475,6 +548,86 @@ def train_phase(dev, rng) -> dict:
             "timed": timed}
 
 
+def device_phase(dev, rng, model, params, rollout_ms) -> dict:
+    """Phase 4b: the fused step's and the grid stage's device time per
+    launch under ``torch.profiler`` at ``DEVICE_SHAPES``, their bounds and
+    the share of the bound reached, the plain grid's time, and the fused
+    step's library yardstick: the three products alone
+    (grid embedding and the two gate products, one ``torch.addmm`` each, on
+    the same weights) in f32 with TF32 off, and again with TF32 on; the port
+    never calls it.  Then the weight preparation's cost per rollout (the
+    packing of both cells, uncached, and ``LSTM.step_weights`` as a rollout
+    calls it, cached), against ``rollout_ms`` of a rollout at the CLI's
+    batch.  Returns {"shapes": {(S, A): row}, "prep": row}."""
+    from trajnetplusplusbaselines_torch.ops.cuda import fused_step
+
+    shapes = {}
+    reps = 20
+    with tempfile.TemporaryDirectory() as tmp:
+        for s, a in DEVICE_SHAPES:
+            n = s * a
+            obs1, obs2, p1, p2 = step_inputs(rng, s, a, dev)
+            h, c = (torch.randn(s, a, 128, device=dev) * 0.5 for _ in range(2))
+            w = model.step_weights(params, "decoder", "fused")
+            step = profiled(lambda: fused_step.fused_dlstm_step(obs1, obs2, p1, p2, h, c, w),
+                            reps, Path(tmp) / "step.txt", kernel="fused_step_kernel")
+            grid, inp = torch.rand(n, 288, device=dev), torch.rand(n, 320, device=dev)
+            hh = h.reshape(n, 128)
+
+            def products():
+                torch.addmm(w["b_grid"], grid, w["w_grid"])
+                torch.addmm(torch.addmm(w["b_gates"], inp, w["w_ih"]), hh, w["w_hh"])
+
+            library = {}
+            for tf32 in (False, True):
+                torch.backends.cuda.matmul.allow_tf32 = tf32
+                try:
+                    library[tf32] = profiled(products, reps, Path(tmp) / "library.txt",
+                                             kernel="")["device_ms"] / reps
+                finally:
+                    torch.backends.cuda.matmul.allow_tf32 = False
+            device_ms = step["kernel_ms"] / reps
+            bound_ms, bound_by = step_bound(n)
+            # the grid stage alone at the same shape, and its plain version
+            grid_ms = profiled(lambda: fused_step.directional_grid(obs1, obs2, p1, p2), reps,
+                               Path(tmp) / "grid.txt", kernel="directional_grid_kernel")
+            grid_ms = grid_ms["kernel_ms"] / reps
+            shapes[(s, a)] = row = {
+                "rows": n, "device_ms": device_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "bound_share": bound_ms / device_ms, "library_f32_ms": library[False],
+                "library_tf32_ms": library[True], "tflops": FLOP_PER_ROW * n / device_ms / 1e9,
+                "grid_device_ms": grid_ms, "grid_bound_ms": grid_bound_ms(n),
+                "grid_bound_share": grid_bound_ms(n) / grid_ms,
+                "plain_grid_ms": time_ms(lambda: fused_step.directional_grid_plain(
+                    obs1, obs2, p1, p2), reps=10)}
+            say("device", s=s, a=a, **row)
+
+        cells = ("encoder", "decoder")
+        sources = [fused_step.weights_from_params(params, cell) for cell in cells]
+
+        def pack():
+            for src in sources:
+                fused_step.pack_weights(src["w_grid"], src["w_ih"], src["w_hh"],
+                                        **fused_step.PACK_LAYOUT)
+
+        pack_ms = host_ms(pack, reps=10)
+        pack_events = profiled(pack, 5, Path(tmp) / "pack.txt", kernel="")
+        cached_ms = host_ms(lambda: [model.step_weights(params, cell, "fused") for cell in cells])
+    prep = {"packs_per_rollout": len(cells), "pack_ms_per_rollout": pack_ms,
+            "pack_launches_per_rollout": pack_events["device_events_per_rep"],
+            "pack_device_ms_per_rollout": pack_events["device_ms"] / 5,
+            "cached_step_weights_ms_per_rollout": cached_ms,
+            "rollout_ms": rollout_ms, "pack_share_of_rollout": pack_ms / rollout_ms,
+            "cached_share_of_rollout": cached_ms / rollout_ms}
+    say("weight_prep", **prep)
+    print("Device  " + "  ".join(
+        "S={} A={}: {:.4f} ms/step ({:.0%} of the {:.4f} ms bound), library f32 {:.4f} / "
+        "tf32 {:.4f} ms".format(s, a, r["device_ms"], r["bound_share"], r["bound_ms"],
+                                r["library_f32_ms"], r["library_tf32_ms"])
+        for (s, a), r in shapes.items()), flush=True)
+    return {"shapes": shapes, "prep": prep}
+
+
 def pool_models() -> dict:
     """Phase 7's models, name -> ``LSTM``: the ten pooled ``--type`` values
     at ``make_pool``'s trainer defaults, a two-layer S-LSTM, a stateful
@@ -756,8 +909,11 @@ def main() -> int:
     log = build.library_path().with_suffix(".log")
     ptxas = [line.strip() for line in log.read_text().splitlines()
              if "registers" in line or "spill" in line] if log.exists() else []
+    sass = sass_counts(build.library_path())
+    if sass is not None and not sass.get("fused_step_kernel", {}).get("HGMMA"):
+        raise AssertionError(f"fused_step_kernel has no tensor-core instruction: {sass}")
     say("build", seconds=round(time.perf_counter() - t0, 3), nvcc_seconds=build.build_seconds,
-        dims=build.kernel_dims(), ptxas=ptxas)
+        dims=build.kernel_dims(), ptxas=ptxas, sass=sass)
 
     rng = np.random.default_rng(0)
     pool = GridBasedPooling(type_="directional", hidden_dim=128, cell_side=CELL_SIDE, n=N,
@@ -779,11 +935,12 @@ def main() -> int:
             raise AssertionError(f"grid differs at A={a}: first cells {bad}")
         say("grid", a=a, s=s, bit_exact=True, cells_hit=int((got != 0).sum()))
 
-    # ---- 3: fused step
+    # ---- 3: fused step, at the buckets and at row counts off the 64-row tile
     step_err = 0.0
-    for a in BUCKETS:
-        s = math.ceil(ROWS_PER_BUCKET / a)
-        obs1, obs2, p1, p2 = step_inputs(rng, s, a, dev)
+    edge_rng = np.random.default_rng(1)  # the later phases draw from rng as before
+    for s, a, gen in ([(math.ceil(ROWS_PER_BUCKET / a), a, rng) for a in BUCKETS]
+                      + [(s, a, edge_rng) for s, a in STEP_EDGES]):
+        obs1, obs2, p1, p2 = step_inputs(gen, s, a, dev)
         h, c = (torch.randn(s, a, 128, device=dev) * 0.5 for _ in range(2))
         errs = {}
         for cell in ("encoder", "decoder"):
@@ -848,6 +1005,10 @@ def main() -> int:
         times[(s, a)] = rollout_times(s, a)
         say("rollout", s=s, a=a, launches=launches, max_position_err_m=pos_err,
             **times[(s, a)])
+
+    # ---- 4b: the fused step's device time, bound and library yardstick
+    device = device_phase(dev, np.random.default_rng(2), model, params,
+                          times[ROLLOUTS[0]]["rollout_ms"])
 
     # ---- 5: serve, the main path: predict -> write -> evaluate
     split = "DATA_BLOCK/synth_split"
@@ -987,6 +1148,7 @@ def main() -> int:
                                out / f"pools_{name}_train_step.txt"))
 
     main_s, main_a = ROLLOUTS[0]
+    main_device = device["shapes"][(main_s, main_a)]
     source = "trajnetplusplusbaselines_torch/csrc/fused_step.cu"
     by_path = {name: {"serve": main_launches[name], "train": train["launches"][name],
                       "pools": pools["launches"][name]}
@@ -1001,6 +1163,12 @@ def main() -> int:
         "max_abs_err": step_err,
         "ms": times[(main_s, main_a)]["step_ms"],
         "plain_ms": times[(main_s, main_a)]["plain_step_ms"],
+        "device_ms": main_device["device_ms"],
+        "bound_ms": main_device["bound_ms"],
+        "bound_by": main_device["bound_by"],
+        "library_ms": main_device["library_f32_ms"],
+        "library_tf32_ms": main_device["library_tf32_ms"],
+        "shapes": {f"{s}x{a}": row for (s, a), row in device["shapes"].items()},
     }, {
         # the fused kernel's grid stage alone, launched by the training step
         # and by every other directional grid
@@ -1013,6 +1181,12 @@ def main() -> int:
         "max_abs_err": max(grid_err, pools["grid_err"]),
         "ms": train["grid_ms"],
         "plain_ms": train["plain_grid_ms"],
+        "bound_ms": grid_bound_ms(TRAIN_BATCH * 8),
+        "bound_by": "bytes",
+        "library_ms": None,
+        "shapes": {f"{s}x{a}": {k: row[k] for k in ("rows", "grid_device_ms", "grid_bound_ms",
+                                                    "grid_bound_share", "plain_grid_ms")}
+                   for (s, a), row in device["shapes"].items()},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

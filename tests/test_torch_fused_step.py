@@ -157,3 +157,68 @@ def test_wrappers_refuse_other_devices():
         fused_step.directional_grid(x, x, m, m)
     with pytest.raises(ValueError, match="no kernel"):
         fused_step.fused_dlstm_step(x, x, m, m, None, None, {})
+
+
+def _unpack(packed, w_grid_shape, hidden, cluster, warpgroups, k_slice):
+    """The inverse of ``pack_weights``'s layout: (w_grid, [w_ih; w_hh] in
+    ``gate_order``) for the hi and the lo parts, each [2, K, N]."""
+    parts = cluster * warpgroups
+    k_grid, pool = w_grid_shape
+    streams = packed.reshape(parts, -1)
+    grid_len = 2 * k_grid * pool // parts
+    out = []
+    for seg, n, k in ((streams[:, :grid_len], pool // parts, k_grid),
+                      (streams[:, grid_len:], 4 * hidden // parts, None)):
+        k = k or seg.shape[1] // (2 * n)
+        t = seg.reshape(parts, k // k_slice, 2, n // 8, k_slice // 4, 8, 4)
+        t = t.permute(2, 0, 3, 5, 1, 4, 6).reshape(2, parts * n, k)  # [hi/lo, columns, K]
+        out.append(t.transpose(1, 2))
+    return out
+
+
+@pytest.mark.parametrize("layout", [fused_step.PACK_LAYOUT,
+                                    {"cluster": 4, "warpgroups": 2, "k_slice": 32}])
+def test_pack_weights_recombines_to_the_originals(layout):
+    """The kernel's packed weights, transposed, split and reordered, give the
+    originals back exactly: hi is TF32 (low 13 bits clear), hi + lo is the
+    f32 weight, and every gate column lands where the kernel reads it."""
+    g = torch.Generator().manual_seed(4)
+    w_grid, w_ih, w_hh = (torch.randn(*shape, generator=g) * 0.1
+                          for shape in ((288, 256), (320, 512), (128, 512)))
+    packed = fused_step.pack_weights(w_grid, w_ih, w_hh, **layout)
+    assert packed.dtype == torch.float32 and packed.is_contiguous()
+    assert packed.numel() == 2 * (288 * 256 + 448 * 512)
+    grid, gates = _unpack(packed, tuple(w_grid.shape), 128, **layout)
+    order = fused_step.gate_order(128, layout["cluster"] * layout["warpgroups"])
+    for (hi, lo), want in ((grid, w_grid), (gates, torch.cat([w_ih, w_hh])[:, order])):
+        assert int((hi.contiguous().view(torch.int32) & 0x1FFF).abs().max()) == 0
+        assert torch.equal(hi + lo, want)
+        assert float((lo / want).abs().max()) <= 2.0 ** -11
+    # column 16p + 8e + 2q + b of a warpgroup is gate 2e + b of its unit 4p + q
+    assert sorted(order.tolist()) == list(range(512))
+    units = 128 // (layout["cluster"] * layout["warpgroups"])
+    for col, (gate, unit) in ((0, (0, 0)), (1, (1, 0)), (2, (0, 1)), (8, (2, 0)), (9, (3, 0)),
+                              (16, (0, 4)), (4 * units, (0, units))):
+        assert int(order[col]) == gate * 128 + unit
+
+
+def test_split_tf32_rounds_to_nearest_ties_away():
+    x = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -12, -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12,
+                      0.0, -3.5e-30], dtype=torch.float32)
+    hi, lo = fused_step.split_tf32(x)
+    want = [1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0, 0.0]
+    assert hi[:5].tolist() == want
+    assert torch.equal(hi + lo, x)
+
+
+def test_packed_weights_are_cached_until_an_update():
+    _, _, params = flagship_params(seed=5)
+    w = {k: v.float() for k, v in fused_step.weights_from_params(params, "decoder").items()}
+    first = fused_step.packed_weights(w["w_grid"], w["w_ih"], w["w_hh"])
+    assert fused_step.packed_weights(w["w_grid"], w["w_ih"], w["w_hh"]) is first
+    with torch.no_grad():
+        w["w_ih"].add_(1.0)  # an optimizer step updates in place
+    updated = fused_step.packed_weights(w["w_grid"], w["w_ih"], w["w_hh"])
+    assert updated is not first
+    assert torch.equal(updated, fused_step.pack_weights(w["w_grid"], w["w_ih"], w["w_hh"],
+                                                        **fused_step.PACK_LAYOUT))

@@ -3,8 +3,9 @@
 Counterpart of ``trajnetplusplusbaselines_tpu``, module for module under the
 same paths, with the JAX package as the reference it is tested against.  The
 framework-free host code of that package (``data``, ``metrics`` and the
-evaluator's writing and scoring) holds only numpy and is imported from there,
-not copied.  Nothing in this package imports ``jax``.
+evaluator's writing and scoring) holds only numpy; the port keeps its own
+copy of what it uses of it.  Nothing in this package imports ``jax`` or the
+JAX package.
 
 Ported so far: the serving path of the D-LSTM (directional grid pooling,
 ``LSTM`` autoregressive rollout, batched prediction, the TrajNet++ evaluator

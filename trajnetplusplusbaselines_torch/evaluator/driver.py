@@ -1,33 +1,54 @@
 """Prediction + evaluation driver, single process.
 
-Port of ``get_predictions`` / ``run_evaluation`` of
-``trajnetplusplusbaselines_tpu/evaluator/driver.py`` without its multi-host
-branch (that one imports jax).  Writing and scoring are the JAX package's
-numpy-only ``write_utils`` and ``trajnet_evaluate``, used as they are.
-Skip-if-exists caching, ``--fill_missing`` and ``--write_only`` behave as
-there, and a predictor whose ``goal_flag`` is set gets the goals of
-``goal_files/test_private/<dataset>.pkl``.  Unlike the JAX loader, a missing
-goal file raises, except for the synthetic ``collision_test`` gate, which
-ships none and takes zero goals.
+Port of ``trajnetplusplusbaselines_tpu/evaluator/driver.py`` without its
+multi-host branch (that one imports jax): ``ensure_data_block``,
+``list_test_datasets``, ``get_predictions`` and ``run_evaluation``.
+Writing and scoring are the port's copies of the JAX package's numpy-only
+``write_utils`` and ``trajnet_evaluate``.  Skip-if-exists caching,
+``--fill_missing`` and ``--write_only`` behave as there, and a predictor
+whose ``goal_flag`` is set gets the goals of
+``goal_files/test_private/<dataset>.pkl``.  Unlike the JAX loader, a
+missing goal file raises, except for the synthetic ``collision_test`` gate,
+which ships none and takes zero goals.
 """
 
 import os
 import pickle
 import shutil
-from typing import Callable, Dict
+from typing import Callable, Dict, List
 
 import numpy as np
 
-from trajnetplusplusbaselines_tpu.evaluator.driver import list_test_datasets
-from trajnetplusplusbaselines_tpu.evaluator.trajnet_evaluator import trajnet_evaluate
-from trajnetplusplusbaselines_tpu.evaluator.write_utils import (
-    load_test_datasets,
-    preprocess_test,
-    write_predictions,
-)
-
+from .trajnet_evaluator import trajnet_evaluate
+from .write_utils import load_test_datasets, preprocess_test, write_predictions
 
 GOALS_OPTIONAL = ("collision_test",)  # synthetic gate datasets without goal files
+
+
+def ensure_data_block(data_root: str, local_root: str, datasets: List[str]) -> None:
+    """Symlink read-only source datasets into the writable DATA_BLOCK tree."""
+    for name in datasets:
+        src = os.path.join(data_root, name)
+        dst = os.path.join(local_root, name)
+        os.makedirs(dst, exist_ok=True)
+        for subset in ("test", "test_private"):
+            src_sub = os.path.join(src, subset)
+            dst_sub = os.path.join(dst, subset)
+            if os.path.isdir(src_sub) and not os.path.exists(dst_sub):
+                os.symlink(os.path.abspath(src_sub), dst_sub)
+
+
+def list_test_datasets(path: str) -> List[str]:
+    """Dataset stems in the test dir (args.path is .../test_pred/)."""
+    # replace only the trailing test_pred component — a blanket
+    # str.replace("_pred", "") would corrupt any other "_pred" in the path
+    head, sep, _ = path.rstrip("/").rpartition("/")
+    test_dir = (head + sep if sep else "") + "test"
+    return sorted(
+        f.replace(".ndjson", "")
+        for f in os.listdir(test_dir)
+        if f.endswith(".ndjson")
+    )
 
 
 def load_goals(dataset: str, scenes, goal_dir: str = "goal_files/test_private"):

@@ -15,8 +15,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from trajnetplusplusbaselines_tpu.data import Reader, augmentation, batching
-
+from ..data import Reader, augmentation, batching
 from ..utils.convert import params_to
 
 

@@ -15,10 +15,8 @@ import os
 
 import torch
 
-from trajnetplusplusbaselines_tpu.evaluator.driver import ensure_data_block
-
 from ..utils.checkpoint import load_predictor
-from .driver import run_evaluation
+from .driver import ensure_data_block, run_evaluation
 from .learned import BatchedPredictor
 
 

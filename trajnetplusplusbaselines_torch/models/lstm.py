@@ -49,6 +49,7 @@ from typing import Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..data import Reader, augmentation, batching
 from ..ops.core import init_lstm_cell
 from ..ops.cuda.fused_step import (
     FUSED_DIMS,
@@ -371,8 +372,6 @@ class LSTMPredictor:
         start_length: int = 0,
         args=None,
     ):
-        from trajnetplusplusbaselines_tpu.data import Reader, augmentation, batching
-
         xy = Reader.paths_to_xy(paths)
         goal_flag = self.model.goal_flag
         scene_goal = np.asarray(scene_goal, dtype=np.float32) if goal_flag else None

@@ -39,7 +39,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "dlstm_directional_grid": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _F, _P],
-    "dlstm_fused_step": [_P] * 19 + [_I, _I, _F, _F, _P],
+    "dlstm_fused_step": [_P] * 17 + [_I, _I, _F, _F, _P],
     "dlstm_kernel_dims": [_P],
 }
 
@@ -101,8 +101,10 @@ def load_library() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def kernel_dims():
     """(n, embedding_dim, pool_dim, hidden_dim) the fused step was compiled
-    for, and the largest grid side the grid stage takes."""
-    out = (ctypes.c_int * 5)()
+    for, the largest grid side the grid stage takes, and the packed
+    weights' layout (blocks per cluster, warpgroups per block, K of a
+    chunk)."""
+    out = (ctypes.c_int * 8)()
     load_library().dlstm_kernel_dims(ctypes.cast(out, ctypes.c_void_p))
     return tuple(out)
 

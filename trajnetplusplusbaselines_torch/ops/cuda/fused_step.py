@@ -5,9 +5,10 @@ fused_step.py:_kernel`` (launched by ``fused_dlstm_step``).  One launch
 computes a whole goal-free D-LSTM step of a directional ``one_layer`` grid
 model: the velocity and input embedding, the 12x12x2 directional grid,
 ``relu(grid @ W_grid + b)``, the LSTM cell, Hidden2Normal and the masked
-state update.  The kernel is ``csrc/fused_step.cu``; what bounds it on the
-card (L2 reads of the weights, f32 FMAs on CUDA cores, no tensor cores yet)
-is written at its head.
+state update.  The kernel is ``csrc/fused_step.cu``: its three products run
+on the tensor cores (wgmma, TF32 split into high and low parts, f32
+accuracy), a cluster of two blocks per 64-row tile, with the weights
+streamed into shared memory; its head says what bounds it on the card.
 
 Layout is scene-major ``[S, A, F]`` contiguous, as in ``models/lstm.py``.
 
@@ -17,8 +18,8 @@ Layout is scene-major ``[S, A, F]`` contiguous, as in ``models/lstm.py``.
 - The fused step is compiled for the flagship's widths (``FUSED_DIMS``); the
   grid stage alone takes the grid's side at run time, up to ``GRID_MAX_N``,
   and the ``front`` offset.  ``models/lstm.py`` routes each configuration by
-  these constants before any launch; the first launch checks them against
-  the library.
+  these constants before any launch; the first launch checks them, and the
+  packed weights' layout (``PACK_LAYOUT``), against the library.
 - Neither kernel has a backward: the JAX package has no backward kernel to
   port, and the grid needs none (its positions are data or detached).  So
   ``fused_dlstm_step`` raises where autograd would record it
@@ -31,12 +32,16 @@ Layout is scene-major ``[S, A, F]`` contiguous, as in ``models/lstm.py``.
   ``ops/embeddings.py``, ``ops/pooling/grid.py``).  ``lstm_step_plain`` is
   the step around the pool, shared with the models' other grid pools and
   with the pool-less LSTM.
-- ``check_weights`` checks a weight dict against the kernel once; the
-  wrapper takes the ``KernelWeights`` it returns without checking again.
+- ``check_weights`` checks a weight dict against the kernel once and packs
+  the three products' weights for it (``pack_weights``: transposed, split
+  into TF32 high and low parts, gate columns reordered; cached on the
+  source tensors' identity and version by ``packed_weights``); the wrapper
+  takes the ``KernelWeights`` it returns without checking again.
 - Each wrapper counts its kernel launches in its ``launches`` attribute.
 """
 
 import functools
+from collections import OrderedDict
 from typing import Dict, Mapping, Optional, Tuple
 
 import torch
@@ -52,6 +57,10 @@ WEIGHT_NAMES = ("w_emb", "b_emb", "w_grid", "b_grid", "w_ih", "w_hh",
 # widths, and the largest grid side of the grid stage alone
 FUSED_DIMS = {"n": 12, "embedding_dim": 64, "pool_dim": 256, "hidden_dim": 128}
 GRID_MAX_N = 32
+# the layout of the fused step's packed weights: blocks per row tile (a
+# cluster), warpgroups per block, and the K of one streamed chunk
+PACK_LAYOUT = {"cluster": 2, "warpgroups": 2, "k_slice": 16}
+PACK_CACHE_SIZE = 8  # packed weight sets kept by packed_weights
 
 
 def lstm_weights(params: Dict, cell: str = "decoder") -> Dict:
@@ -158,11 +167,12 @@ def _check_inputs(obs1, obs2, present1, present2, *state):
 @functools.lru_cache(maxsize=None)
 def _library_dims():
     """The library's ``dlstm_kernel_dims``; raises unless they are the
-    widths this module routes by (``FUSED_DIMS``, ``GRID_MAX_N``)."""
+    widths this module routes by (``FUSED_DIMS``, ``GRID_MAX_N``) and the
+    layout it packs for (``PACK_LAYOUT``)."""
     from . import build
 
     dims = build.kernel_dims()
-    want = (*FUSED_DIMS.values(), GRID_MAX_N)
+    want = (*FUSED_DIMS.values(), GRID_MAX_N, *PACK_LAYOUT.values())
     if dims != want:
         raise RuntimeError(f"the kernel library reports dims {dims}, the wrapper expects {want}")
     return dims
@@ -170,7 +180,7 @@ def _library_dims():
 
 def _kernel_shapes():
     """(n, hidden_dim, {weight name: shape}) the fused step was compiled for."""
-    k_n, k_emb, k_pool, k_hidden, _ = _library_dims()
+    k_n, k_emb, k_pool, k_hidden = _library_dims()[:4]
     return k_n, k_hidden, {
         "w_emb": (2, k_emb - 2), "b_emb": (k_emb - 2,),
         "w_grid": (2 * k_n * k_n, k_pool), "b_grid": (k_pool,),
@@ -184,14 +194,91 @@ def _check_n(n):
         raise ValueError(f"the kernel is built for n={k_n}, got n={n}")
 
 
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of float32 ``x``: hi is x rounded to TF32 (10 mantissa bits,
+    to nearest, ties away from zero, as ``cvt.rna.tf32.f32``), lo = x - hi,
+    exact in f32."""
+    bits = x.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return hi, x - hi
+
+
+@functools.lru_cache(maxsize=None)
+def gate_order(hidden: int, parts: int, device=None) -> torch.Tensor:
+    """The gate columns (gate-major i, f, g, o of ``hidden`` units) in the
+    kernel's order: ``parts`` warpgroups of ``4 * hidden / parts`` columns,
+    and within one, column 16p + 8e + 2q + b is gate 2e + b of its unit
+    4p + q, so that a thread's wgmma accumulators hold all four gates of its
+    units."""
+    units = hidden // parts
+    j = torch.arange(4 * units, device=device)
+    p, e, q, b = j // 16, (j // 8) % 2, (j // 2) % 4, j % 2
+    unit = torch.arange(parts, device=device)[:, None] * units + (4 * p + q)[None]
+    return ((2 * e + b)[None] * hidden + unit).reshape(-1)
+
+
+def _core_matrices(w: torch.Tensor, k_slice: int) -> torch.Tensor:
+    """[P, N, K] -> [P, K / k_slice, N / 8, k_slice / 4, 8, 4]: per K slice,
+    wgmma's K-major core matrices (8 rows of 4 values), 8-row groups
+    outermost."""
+    p, n, k = w.shape
+    return w.reshape(p, n // 8, 8, k // k_slice, k_slice // 4, 4).permute(0, 3, 1, 4, 2, 5)
+
+
+def pack_weights(w_grid: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor, *,
+                 cluster: int, warpgroups: int, k_slice: int) -> torch.Tensor:
+    """The fused kernel's weight streams, flat: for each of the
+    ``cluster * warpgroups`` warpgroups of a row tile, its grid-embedding
+    columns (``w_grid`` [288, 256] cut in as many parts) then its gate
+    columns (``[w_ih; w_hh]`` [448, 512] in ``gate_order``), each as
+    chunks of ``k_slice`` K: the TF32 high part, then the low part
+    (``split_tf32``), as wgmma's K-major core matrices.  The plain
+    function behind ``packed_weights``, for any device."""
+    parts = cluster * warpgroups
+    hidden = w_hh.shape[0]
+    grid_t = w_grid.t().reshape(parts, w_grid.shape[1] // parts, w_grid.shape[0])
+    gates = torch.cat([w_ih, w_hh])[:, gate_order(hidden, parts, w_ih.device)]
+    gates_t = gates.t().reshape(parts, 4 * hidden // parts, gates.shape[0])
+    streams = []
+    for w in (grid_t, gates_t):
+        hi, lo = split_tf32(w)
+        tiles = torch.stack([_core_matrices(hi, k_slice), _core_matrices(lo, k_slice)], dim=2)
+        streams.append(tiles.reshape(parts, -1))
+    return torch.cat(streams, dim=1).reshape(-1)
+
+
+_PACKED: "OrderedDict[tuple, tuple]" = OrderedDict()
+
+
+def packed_weights(w_grid: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
+    """``pack_weights`` in ``PACK_LAYOUT``, cached on the source tensors'
+    identity and version: an in-place update (an optimizer step) packs
+    again.  The last ``PACK_CACHE_SIZE`` packings are kept, each with its
+    sources, so that an id is not reused while its entry lives."""
+    sources = (w_grid, w_ih, w_hh)
+    key = tuple((id(t), t._version) for t in sources)
+    hit = _PACKED.get(key)
+    if hit is not None:
+        _PACKED.move_to_end(key)
+        return hit[1]
+    packed = pack_weights(*sources, **PACK_LAYOUT)
+    _PACKED[key] = (sources, packed)
+    if len(_PACKED) > PACK_CACHE_SIZE:
+        _PACKED.popitem(last=False)
+    return packed
+
+
 class KernelWeights(Mapping):
-    """A weight dict checked against the kernel on ``device``, read-only."""
+    """A weight dict checked against the kernel on ``device``, read-only,
+    and ``packed``: its three products' weights as the kernel reads them."""
 
-    __slots__ = ("_weights", "device")
+    __slots__ = ("_weights", "device", "packed")
 
-    def __init__(self, weights: Dict[str, torch.Tensor], device: torch.device):
+    def __init__(self, weights: Dict[str, torch.Tensor], device: torch.device,
+                 packed: torch.Tensor):
         self._weights = weights
         self.device = device
+        self.packed = packed
 
     def __getitem__(self, name):
         return self._weights[name]
@@ -205,7 +292,8 @@ class KernelWeights(Mapping):
 
 def check_weights(weights: Mapping, device) -> KernelWeights:
     """Raise unless every weight is a contiguous float32 tensor on ``device``
-    of the shape the kernel was compiled for."""
+    of the shape the kernel was compiled for; pack them for the kernel
+    (``packed_weights``)."""
     device = torch.device(device)
     shapes = _kernel_shapes()[2]
     checked = {}
@@ -218,7 +306,8 @@ def check_weights(weights: Mapping, device) -> KernelWeights:
         if tuple(x.shape) != shapes[name]:
             raise ValueError(f"weight {name} must have shape {shapes[name]}, got {tuple(x.shape)}")
         checked[name] = x
-    return KernelWeights(checked, device)
+    return KernelWeights(checked, device,
+                         packed_weights(checked["w_grid"], checked["w_ih"], checked["w_hh"]))
 
 
 def directional_grid(obs1, obs2, present1, present2, *, n=12, cell_side=0.6,
@@ -277,6 +366,8 @@ def fused_dlstm_step(obs1, obs2, present1, present2, h, c, weights: Mapping, *, 
     hidden = _kernel_shapes()[1]
     if h.shape[-1] != hidden or c.shape[-1] != hidden:
         raise ValueError(f"the kernel is built for hidden_dim={hidden}, got {h.shape[-1]}")
+    if h.data_ptr() % 16:
+        raise ValueError("h must be 16-byte aligned: the kernel reads it in 16-byte loads")
     if not (isinstance(weights, KernelWeights) and weights.device == obs2.device):
         weights = check_weights(weights, obs2.device)
 
@@ -288,7 +379,9 @@ def fused_dlstm_step(obs1, obs2, present1, present2, h, c, weights: Mapping, *, 
         status = build.load_library().dlstm_fused_step(
             obs1.data_ptr(), obs2.data_ptr(), present1.data_ptr(), present2.data_ptr(),
             h.data_ptr(), c.data_ptr(),
-            *(weights[name].data_ptr() for name in WEIGHT_NAMES),
+            weights["w_emb"].data_ptr(), weights["b_emb"].data_ptr(), weights.packed.data_ptr(),
+            weights["b_grid"].data_ptr(), weights["b_gates"].data_ptr(),
+            weights["w_h2n"].data_ptr(), weights["b_h2n"].data_ptr(),
             h_out.data_ptr(), c_out.data_ptr(), normal.data_ptr(), mask.data_ptr(),
             s, a, float(cell_side), float(constant),
             torch.cuda.current_stream().cuda_stream,

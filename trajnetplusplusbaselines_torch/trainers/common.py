@@ -32,8 +32,7 @@ from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from trajnetplusplusbaselines_tpu.data import augmentation, batching
-from trajnetplusplusbaselines_tpu.data.reader import Reader
+from ..data import Reader, augmentation, batching
 
 NOISE_THRESH = 0.02  # --augment_noise: uniform noise bound in metres
 

@@ -42,9 +42,8 @@ import time
 import numpy as np
 import torch
 
-from trajnetplusplusbaselines_tpu.data.load import prepare_data
-
 from .. import __version__ as VERSION
+from ..data.load import prepare_data
 from ..losses import collision_loss, l2_loss, prediction_loss
 from ..models.lstm import LSTM, LSTMPredictor
 from ..ops.pooling import POOL_TYPES, make_pool
