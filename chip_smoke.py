@@ -7,9 +7,13 @@ Run from the root of a checkout on a machine with one CUDA card, nvcc and
 PyTorch built for CUDA (no jax needed).  Phases, one line each:
 
 0. the card (nvidia-smi name and power limit), torch and CUDA versions;
-1. build: nvcc compiles ``trajnetplusplusbaselines_torch/csrc/*.cu``;
-2. grid: the kernel's directional grid against the plain grid, bit-exact,
-   at agent buckets 1..150 with ~16k agent rows each;
+1. build: nvcc compiles ``trajnetplusplusbaselines_torch/csrc/*.cu``, one
+   process per source; the build line counts SASS instructions
+   (``cuobjdump``) and fails without a tensor-core one in the fused step or
+   a 16-byte store in the grid stage;
+2. grid: the grid stage against the plain grid, bit-exact, at agent buckets
+   1..150 with ~16k agent rows each, and on ``grid_edge_cases`` (each built
+   to hit one rule of the last write; the rules checked on the output);
 3. step: the fused step kernel against the plain step, encoder and decoder
    weights, f32, atol 2e-5 / rtol 1e-4 (3xTF32 tensor-core products and
    their summation order over K <= 448), mask bit-exact, at the buckets and
@@ -18,13 +22,14 @@ PyTorch built for CUDA (no jax needed).  Phases, one line each:
    plain, positions within 1e-3 m, 19 kernel launches per rollout, and the
    per-step and per-rollout times of both (CUDA events, after warm-up), at
    the CLI's own batch (64 scenes of 8 agents) and two larger ones;
-   (b) the fused kernel's and the grid stage's device time per launch
-   (``torch.profiler``) at those three shapes, their bounds (3xTF32 on the
-   tensor cores or the bytes, whichever is larger; the grid's bytes) and
-   the share of them reached, the library yardstick (the three products
-   alone through ``torch.addmm``, f32 with TF32 off and on), and the weight
-   preparation's cost per rollout; the build line counts the kernels'
-   SASS instructions (``cuobjdump``) and fails without a tensor-core one;
+   (b) the fused kernel's device time per launch (``torch.profiler``) at
+   those three shapes, its bound (3xTF32 on the tensor cores or the bytes,
+   whichever is larger) and the share of it reached, the library
+   yardstick (the three products alone through ``torch.addmm``, f32 with
+   TF32 off and on), and the weight preparation's cost per rollout; the
+   grid stage's device time per launch at n=12 at those shapes, at a train
+   step's S=8, A=8 and at S=8192, A=8 (77 MB written, past the L2), against
+   its bound (the bytes, ``grid_bound_ms``);
 5. serve (the main path): a synthetic TrajNet++ split written to a temporary
    directory, a seeded D-LSTM saved with ``save_predictor``, and
    ``evaluator.lstm_cli.main([... "--device", "cuda"])`` predicting, writing
@@ -59,8 +64,10 @@ PyTorch built for CUDA (no jax needed).  Phases, one line each:
        fused launch for every directional grid off the flagship's widths,
        19 fused launches for the flagship; the grid stage alone against
        the plain grid, bit-exact, at every geometry the grid route gives
-       it (n=8, n=12, n=12 with front, and pool_size 2 as n=24 at 0.3 m),
-       and the times of both;
+       it (n=8, n=12, n=12 with front, and pool_size 2 as n=24 at 0.3 m):
+       its device time per launch (``torch.profiler``) against its bound at
+       that n, and the time per call of both (CUDA events, the wrapper's
+       host time included);
    (b) ``trainers.lstm.main([... "--device", "cuda"])``, one epoch at batch
        8, for social, attentionmlp, nn_lstm and ``directional --goals``
        (goal files written beside the split): finite losses, 19 grid-stage
@@ -92,6 +99,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import namedtuple
 from pathlib import Path
 from unittest import mock
 
@@ -121,11 +129,15 @@ DEVICE_SHAPES = ((BATCH_SCENES, 8), (1024, 8), (256, 32))  # (scenes, agents) of
 STEP_EDGES = ((3, 7), (1, 1), (65, 8))  # phase 3: below one tile, one row, a partial last tile
 SERVE_PASSES = 5
 CELL_SIDE, N = 0.6, 12
-GRID_BYTES_PER_ROW = 2 * 8 + 2 + 2 * N * N * 4  # the grid stage: positions, presence in; grid out
 STEP_ATOL, STEP_RTOL = 2e-5, 1e-4
 POSITION_ATOL = 1e-3
 TRAIN_BATCH, TRAIN_EPOCHS = 8, 2  # the trainer's default batch
 TRAIN_TIMED = ((TRAIN_BATCH, 8), (256, 8))  # (scenes, agents) of the timed train steps
+# phase 4b's grid stage shapes: a train step, the CLI's batch, two of 8,192
+# rows (the 9.4 MB written stays in the 50 MB L2) and one past the L2
+GRID_DEVICE_SHAPES = ((TRAIN_BATCH, 8), (BATCH_SCENES, 8), (1024, 8), (256, 32), (8192, 8))
+GRID_REPS = 50  # grid-stage launches per profiled window
+GRID_EDGE_CONSTANT = 0.25  # the edge cases' `constant`: neither zero nor a velocity
 # an f32 step on the card against an f64 step on the CPU
 CPU_LOSS_RTOL, CPU_GRAD_RTOL, CPU_GRAD_ATOL_SHARE = 1e-5, 1e-4, 1e-5
 # a named leaf whose CPU gradient is below VANISHING of the step's largest is
@@ -156,9 +168,11 @@ def step_bound(rows):
     return 1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes"
 
 
-def grid_bound_ms(rows):
-    """The least time for the grid stage over ``rows`` rows: its bytes."""
-    return 1e3 * GRID_BYTES_PER_ROW * rows / PEAK_BYTES
+def grid_bound_ms(rows, n):
+    """The least time for the grid stage over ``rows`` rows at side ``n``: its
+    bytes (positions at t-1 and t and two presence bytes in, the 2 n^2 f32
+    grid out) at the memory's rate."""
+    return 1e3 * (2 * 8 + 2 + 2 * n * n * 4) * rows / PEAK_BYTES
 
 
 def host_ms(fn, reps=20, warmup=2) -> float:
@@ -186,10 +200,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def sass_counts(library, ops=("HGMMA", "HMMA", "FFMA", "UBLKCP")):
+def sass_counts(library, ops=("HGMMA", "HMMA", "FFMA", "UBLKCP", "STG.E.128")):
     """{kernel: {op: count}} of the built library's SASS (``cuobjdump
-    -sass``), for the kernels of ``csrc``; None where the toolkit has no
-    cuobjdump."""
+    -sass``), for the kernels of ``csrc``, summed over a kernel's template
+    instances; None where the toolkit has no cuobjdump."""
     from trajnetplusplusbaselines_torch.ops.cuda import build
 
     tool = Path(build._nvcc()).parent / "cuobjdump"  # beside the nvcc that built it
@@ -203,7 +217,7 @@ def sass_counts(library, ops=("HGMMA", "HMMA", "FFMA", "UBLKCP")):
             name = line.split("Function :")[1].strip()
             kernel = next((k for k in ("fused_step_kernel", "directional_grid_kernel")
                            if k in name), name)
-            counts[kernel] = {}
+            counts.setdefault(kernel, {})
         elif kernel is not None:
             for op in ops:
                 if op in line:
@@ -247,6 +261,153 @@ def step_inputs(rng, s, a, device):
     obs1 = np.where(p1[..., None], obs1, 0.0).astype(np.float32)
     obs2 = np.where(p2[..., None], obs2, 0.0).astype(np.float32)
     return [torch.from_numpy(x).to(device) for x in (obs1, obs2, p1, p2)]
+
+
+GridCase = namedtuple("GridCase", "name obs1 obs2 p1 p2 geometry checks")
+
+
+def grid_edge_cases(rng, dtype=np.float32):
+    """Batches for the grid stage, each built to hit one rule of its last
+    write, as numpy arrays: positions [S, A, 2] in ``dtype`` (an absent
+    agent's are 0), presence [S, A] bool, the geometry (``n``,
+    ``cell_side``, ``constant``, ``front``) and ``checks``, what the rule
+    gives in the grid: ``(kind, s, i, cell, j)``, kind "constant" (cell
+    ``cell`` of agent i's grid in scene s holds ``constant``; every cell
+    where ``cell`` is None), "zero", "value" (neighbour j's velocity
+    relative to agent i's), or "boundary" (j's offset from i, in whole
+    centimetres, is a whole number of cells).  The special agents take the
+    highest j of their scene, so no other neighbour overwrites them.  Most
+    cases use a cell side of 0.5 m, exact in binary, so that an offset lands
+    exactly on a cell edge in f32 and f64 alike."""
+    cases = []
+
+    def batch(s, a, absent=0.0):
+        """A crowd: positions around the origin, velocities, presence."""
+        obs2 = rng.normal(scale=1.5, size=(s, a, 2))
+        obs1 = obs2 - rng.normal(scale=0.3, size=(s, a, 2))
+        p1, p2 = (rng.random((s, a)) >= absent for _ in range(2))
+        p1[:, 0] = p2[:, 0] = True
+        return [obs1, obs2, p1, p2]
+
+    def place(b, s, j, xy):
+        """Agent j of scene s at ``xy`` at t, moving."""
+        b[1][s, j] = xy
+        b[0][s, j] = np.asarray(xy, float) - rng.normal(scale=0.3, size=2)
+        b[2][s, j] = b[3][s, j] = True
+
+    def add(name, b, checks, n=N, cell_side=0.5, front=False):
+        obs1, obs2, p1, p2 = b
+        cases.append(GridCase(
+            name, np.where(p1[..., None], obs1, 0.0).astype(dtype),
+            np.where(p2[..., None], obs2, 0.0).astype(dtype), p1, p2,
+            dict(n=n, cell_side=cell_side, constant=GRID_EDGE_CONSTANT, front=front), checks))
+
+    # cell 0 of a 12 x 12 grid at 0.5 m: offsets in [-3, -2.5) on both axes
+    b = batch(2, 3)
+    place(b, 0, 0, (0.0, 0.0)), place(b, 0, 1, (-2.75, -2.75)), place(b, 0, 2, (10.0, 10.0))
+    place(b, 1, 0, (1.5, -1.5)), place(b, 1, 1, (11.5, -11.5)), place(b, 1, 2, (-1.25, -4.25))
+    add("cell0_out_of_range_overwrites_in_range", b,
+        [("constant", 0, 0, 0, None), ("value", 1, 0, 0, 2)])
+    b = batch(1, 4)
+    place(b, 0, 0, (0.5, 0.5)), place(b, 0, 1, (0.6, 0.7)), place(b, 0, 2, (0.8, 0.9))
+    place(b, 0, 3, (-0.5, 2.5))
+    add("two_in_one_cell", b, [("value", 0, 0, 78, 2), ("value", 0, 0, 58, 3)])
+    b = batch(3, 3)
+    for s in range(3):
+        place(b, s, 0, (0.0, 0.0))
+    place(b, 0, 1, (-2.75, -2.75)), place(b, 0, 2, (3.0, 0.0))     # outer edge: out of range
+    place(b, 1, 1, (10.0, 10.0)), place(b, 1, 2, (-3.0, -3.0))     # lower edge: in, cell 0
+    place(b, 2, 1, (-0.5, 0.0)), place(b, 2, 2, (0.0, -0.5))       # inner edges: cells 66, 77
+    add("grid_edges", b, [("constant", 0, 0, 0, None), ("value", 1, 0, 0, 2),
+                          ("value", 2, 0, 66, 1), ("value", 2, 0, 77, 2),
+                          ("constant", 2, 0, 54, None), ("constant", 2, 0, 65, None)])
+    b = batch(2, 3)
+    place(b, 0, 0, (0.0, 0.0)), place(b, 0, 1, (0.25, 0.25)), place(b, 0, 2, (-1.25, 0.25))
+    b[2][0, 1] = False                                             # agent 1 appears at t
+    place(b, 1, 0, (0.0, 0.0)), place(b, 1, 1, (0.25, 0.25)), place(b, 1, 2, (20.0, 0.0))
+    b[2][1, 0] = False                                             # agent 0 appears at t
+    add("appears_at_t", b, [("zero", 0, 0, 78, None), ("value", 0, 0, 42, 2),
+                            ("zero", 1, 0, 78, None)])
+    b = batch(2, 3)
+    place(b, 0, 0, (0.0, 0.0)), place(b, 0, 1, (-2.75, -2.75)), place(b, 0, 2, (1.0, 1.0))
+    b[3][0, 2] = False                                             # agent 2 absent at t
+    place(b, 1, 0, (0.0, 0.0)), place(b, 1, 1, (1.0, 1.0)), place(b, 1, 2, (-2.75, -2.75))
+    b[2][1, 1] = b[3][1, 1] = False                                # agent 1 a padded slot
+    add("absent_at_t", b, [("constant", 0, 0, 0, None), ("constant", 0, 2, None, None),
+                           ("constant", 1, 1, None, None), ("value", 1, 0, 0, 2)])
+    add("a1", batch(3, 1), [("constant", s, 0, None, None) for s in range(3)])
+    # crowds around the warp's 32 lanes; cell 78 is offsets [0, 0.6) at 0.6 m
+    for a in (31, 32, 33, 150):
+        b = batch(2, a, absent=0.1)
+        place(b, 0, 0, (0.0, 0.0)), place(b, 0, 1, (0.1, 0.1)), place(b, 0, 2, (-3.3, -3.3))
+        place(b, 0, a - 2, (20.0, 20.0)), place(b, 0, a - 1, (0.2, 0.2))
+        add(f"a{a}", b, [("value", 0, 0, 78, a - 1), ("constant", 0, 0, 0, None)],
+            cell_side=CELL_SIDE)
+    b = batch(2, 3)
+    for s, far in ((0, 2), (1, 1)):                # one cell of 2 m: offsets [-1, 1)
+        place(b, s, 0, (0.0, 0.0)), place(b, s, 3 - far, (0.5, 0.5)), place(b, s, far, (5.0, 5.0))
+    add("n1", b, [("constant", 0, 0, 0, None), ("value", 1, 0, 0, 2)], n=1, cell_side=2.0)
+    b = batch(2, 9)
+    place(b, 0, 0, (0.0, 0.0)), place(b, 0, 7, (-4.0, -4.0)), place(b, 0, 8, (3.9, 3.9))
+    add("n32", b, [("value", 0, 0, 0, 7), ("value", 0, 0, 1023, 8)], n=32, cell_side=0.25)
+    b = batch(1, 3)
+    place(b, 0, 0, (0.0, 0.0)), place(b, 0, 1, (0.25, 0.25)), place(b, 0, 2, (0.25, -0.25))
+    add("front", b, [("value", 0, 0, 72, 1), ("constant", 0, 0, 0, None)], front=True)
+    # TrajNet++ positions are whole centimetres: offsets of whole cells of
+    # 0.6 m, which is not exact in binary
+    b = batch(8, 16, absent=0.1)
+    place(b, 0, 0, (0.37, -1.21)), place(b, 0, 1, (1.57, -1.81))
+    b[0], b[1] = np.round(b[0], 2), np.round(b[1], 2)
+    add("centimetres", b, [("boundary", 0, 0, None, 1)], cell_side=CELL_SIDE)
+    # more agents than a block stages
+    b = batch(1, 1024)
+    b[1] *= 3.0
+    place(b, 0, 0, (0.0, 0.0)), place(b, 0, 1023, (0.5, 0.5))
+    add("a1024", b, [("value", 0, 0, 3, 1023)], n=2, cell_side=2.0)
+    return cases
+
+
+def grid_case_failures(case, grid):
+    """The checks of ``case`` that the grid [S, A, 2 n^2] breaks."""
+    grid = np.asarray(grid)
+    g = case.geometry["n"] ** 2
+    failed = []
+    for kind, s, i, cell, j in case.checks:
+        cells = grid[s, i].reshape(2, g)
+        if kind == "boundary":
+            steps = np.round(100 * (case.obs2[s, j] - case.obs2[s, i]).astype(np.float64))
+            ok = (steps % round(100 * case.geometry["cell_side"]) == 0).all()
+        elif kind == "constant":
+            got = cells if cell is None else cells[:, cell]
+            ok = (got == case.geometry["constant"]).all()
+        elif kind == "zero":
+            ok = (cells[:, cell] == 0).all()
+        else:
+            vel = case.obs2[s] - case.obs1[s]
+            ok = np.array_equal(cells[:, cell], vel[j] - vel[i])
+        if not ok:
+            failed.append((kind, s, i, cell, j))
+    return failed
+
+
+def grid_stage_rows(fused_step, dev, rng, shapes=GRID_DEVICE_SHAPES, plain=True) -> dict:
+    """{(S, A): row} of the grid stage of ``fused_step`` (the port's module,
+    of this checkout or another) at side N: its device ms per launch
+    (``torch.profiler``, ``GRID_REPS`` warm launches), its bound and the
+    share of it reached and, with ``plain``, the plain grid's ms (CUDA
+    events)."""
+    rows = {}
+    for s, a in shapes:
+        obs1, obs2, p1, p2 = step_inputs(rng, s, a, dev)
+        ms = kernel_ms_per_launch(lambda: fused_step.directional_grid(obs1, obs2, p1, p2),
+                                  GRID_REPS, "directional_grid_kernel")
+        bound = grid_bound_ms(s * a, N)
+        rows[(s, a)] = {"rows": s * a, "n": N, "device_ms": ms, "bound_ms": bound,
+                        "bound_share": bound / ms}
+        if plain:
+            rows[(s, a)]["plain_ms"] = time_ms(
+                lambda: fused_step.directional_grid_plain(obs1, obs2, p1, p2), reps=10)
+    return rows
 
 
 def rollout_inputs(rng, s, a, device):
@@ -342,9 +503,9 @@ def write_split(root, rng, n_scenes=300, big=140, observed_only=("test",),
 def profiled(fn, reps, table_path, kernel="fused_step_kernel"):
     """Run ``fn`` ``reps`` times, warm, under ``torch.profiler``; write the
     op tables (by device time, and by host time beside it) to
-    ``table_path`` and return the window's device time, the named kernel's
-    part of it, the device events per rep, the wall time and the device's
-    busy share."""
+    ``table_path`` (unless None) and return the window's device time, the
+    named kernel's part of it and its launches, the device events per rep,
+    the wall time and the device's busy share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -358,15 +519,40 @@ def profiled(fn, reps, table_path, kernel="fused_step_kernel"):
         wall_ms = (time.perf_counter() - t0) * 1e3
     device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     device_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
-    kernel_ms = sum(e.time_range.elapsed_us() for e in device if kernel in e.name) / 1e3
-    averages = prof.key_averages()
-    key = ("self_device_time_total" if hasattr(averages[0], "self_device_time_total")
-           else "self_cuda_time_total")
-    Path(table_path).write_text(averages.table(sort_by=key, row_limit=30) + "\n"
-                                + averages.table(sort_by="self_cpu_time_total", row_limit=30))
+    named = [e for e in device if kernel in e.name]
+    kernel_ms = sum(e.time_range.elapsed_us() for e in named) / 1e3
+    if table_path is not None:
+        averages = prof.key_averages()
+        key = ("self_device_time_total" if hasattr(averages[0], "self_device_time_total")
+               else "self_cuda_time_total")
+        Path(table_path).write_text(averages.table(sort_by=key, row_limit=30) + "\n"
+                                    + averages.table(sort_by="self_cpu_time_total", row_limit=30))
     return {"reps": reps, "device_ms": device_ms, "kernel": kernel, "kernel_ms": kernel_ms,
-            "device_events_per_rep": len(device) / reps, "wall_ms": wall_ms,
-            "device_busy": device_ms / wall_ms if wall_ms else 0.0}
+            "kernel_launches": len(named), "device_events_per_rep": len(device) / reps,
+            "wall_ms": wall_ms, "device_busy": device_ms / wall_ms if wall_ms else 0.0}
+
+
+def held_window(fn, reps, kernel, at_least, windows=3) -> dict:
+    """``profiled(fn, reps, None, kernel)`` of a window whose trace holds at
+    least ``at_least`` launches of ``kernel``.  The profiler can drop a
+    window's device events, some or all of them: a window short of them is
+    profiled again, up to ``windows`` times, and then it raises."""
+    for _ in range(windows):
+        out = profiled(fn, reps, None, kernel=kernel)
+        if out["kernel_launches"] >= at_least:
+            return out
+    raise AssertionError(f"{windows} windows of {reps} calls held {out['kernel_launches']} "
+                         f"launches of {kernel!r}, the last, for {at_least} wanted")
+
+
+def kernel_ms_per_launch(fn, reps, kernel) -> float:
+    """Device ms per launch of ``kernel`` over ``reps`` warm calls of ``fn``,
+    each launching it once (``torch.profiler``): the mean over the launches
+    the trace holds, at least half of them (``held_window``)."""
+    out = held_window(fn, reps, kernel, reps / 2)
+    if out["kernel_launches"] > reps:
+        raise AssertionError(f"{reps} calls left {out['kernel_launches']} launches of {kernel}")
+    return out["kernel_ms"] / out["kernel_launches"]
 
 
 def step_on(trainer, batch, device, dtype):
@@ -526,6 +712,7 @@ def train_phase(dev, rng) -> dict:
             "fwd_bwd_ms": time_ms(lambda: timed.loss_and_grads(*b), reps=reps),
         }
         train_times[(s, a)]["train_scenes_per_s"] = s / train_times[(s, a)]["train_step_ms"] * 1e3
+    # per call: the wrapper's host time and the launch, not the kernel alone
     obs1, obs2, p1, p2 = step_inputs(rng, TRAIN_BATCH, 8, dev)
     grid_ms = time_ms(lambda: fused_step.directional_grid(obs1, obs2, p1, p2), reps=50)
     plain_grid_ms = time_ms(lambda: fused_step.directional_grid_plain(obs1, obs2, p1, p2),
@@ -537,28 +724,29 @@ def train_phase(dev, rng) -> dict:
         served_ade_fde=served[1:3], rotation_err_m=rotation_err, check_bucket=key,
         grid_vs_plain_max_diff=grid_train_err,
         cpu_loss_rel_err=cpu_loss_rel, cpu_grad_max_err_share=cpu_grad_err,
-        grid_ms=grid_ms, plain_grid_ms=plain_grid_ms,
+        grid_per_call_ms=grid_ms, plain_grid_ms=plain_grid_ms,
         steps={f"{s}x{a}": row for (s, a), row in train_times.items()})
     print("Train  " + "  ".join(
         "S={} A={}: {:.3f} ms/step, {:.1f} scenes/s".format(
             s, a, row["train_step_ms"], row["train_scenes_per_s"])
         for (s, a), row in train_times.items())
-        + "  grid {:.4f} ms vs plain {:.4f} ms".format(grid_ms, plain_grid_ms), flush=True)
+        + "  grid {:.4f} ms per call vs plain {:.4f} ms".format(grid_ms, plain_grid_ms),
+        flush=True)
     return {"launches": train_launches, "grid_ms": grid_ms, "plain_grid_ms": plain_grid_ms,
             "timed": timed}
 
 
 def device_phase(dev, rng, model, params, rollout_ms) -> dict:
-    """Phase 4b: the fused step's and the grid stage's device time per
-    launch under ``torch.profiler`` at ``DEVICE_SHAPES``, their bounds and
-    the share of the bound reached, the plain grid's time, and the fused
-    step's library yardstick: the three products alone
+    """Phase 4b: the fused step's device time per launch under
+    ``torch.profiler`` at ``DEVICE_SHAPES``, its bound and the share of the
+    bound reached, and its library yardstick: the three products alone
     (grid embedding and the two gate products, one ``torch.addmm`` each, on
     the same weights) in f32 with TF32 off, and again with TF32 on; the port
-    never calls it.  Then the weight preparation's cost per rollout (the
-    packing of both cells, uncached, and ``LSTM.step_weights`` as a rollout
-    calls it, cached), against ``rollout_ms`` of a rollout at the CLI's
-    batch.  Returns {"shapes": {(S, A): row}, "prep": row}."""
+    never calls it.  The weight preparation's cost per rollout (the packing
+    of both cells, uncached, and ``LSTM.step_weights`` as a rollout calls
+    it, cached), against ``rollout_ms`` of a rollout at the CLI's batch.
+    Then the grid stage at ``GRID_DEVICE_SHAPES`` (``grid_stage_rows``).
+    Returns {"shapes": {(S, A): row}, "prep": row, "grid": {(S, A): row}}."""
     from trajnetplusplusbaselines_torch.ops.cuda import fused_step
 
     shapes = {}
@@ -569,8 +757,9 @@ def device_phase(dev, rng, model, params, rollout_ms) -> dict:
             obs1, obs2, p1, p2 = step_inputs(rng, s, a, dev)
             h, c = (torch.randn(s, a, 128, device=dev) * 0.5 for _ in range(2))
             w = model.step_weights(params, "decoder", "fused")
-            step = profiled(lambda: fused_step.fused_dlstm_step(obs1, obs2, p1, p2, h, c, w),
-                            reps, Path(tmp) / "step.txt", kernel="fused_step_kernel")
+            device_ms = kernel_ms_per_launch(
+                lambda: fused_step.fused_dlstm_step(obs1, obs2, p1, p2, h, c, w), reps,
+                "fused_step_kernel")
             grid, inp = torch.rand(n, 288, device=dev), torch.rand(n, 320, device=dev)
             hh = h.reshape(n, 128)
 
@@ -582,24 +771,15 @@ def device_phase(dev, rng, model, params, rollout_ms) -> dict:
             for tf32 in (False, True):
                 torch.backends.cuda.matmul.allow_tf32 = tf32
                 try:
-                    library[tf32] = profiled(products, reps, Path(tmp) / "library.txt",
-                                             kernel="")["device_ms"] / reps
+                    # every launch of the window: three products a rep
+                    library[tf32] = held_window(products, reps, "", 3 * reps)["device_ms"] / reps
                 finally:
                     torch.backends.cuda.matmul.allow_tf32 = False
-            device_ms = step["kernel_ms"] / reps
             bound_ms, bound_by = step_bound(n)
-            # the grid stage alone at the same shape, and its plain version
-            grid_ms = profiled(lambda: fused_step.directional_grid(obs1, obs2, p1, p2), reps,
-                               Path(tmp) / "grid.txt", kernel="directional_grid_kernel")
-            grid_ms = grid_ms["kernel_ms"] / reps
             shapes[(s, a)] = row = {
                 "rows": n, "device_ms": device_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                 "bound_share": bound_ms / device_ms, "library_f32_ms": library[False],
-                "library_tf32_ms": library[True], "tflops": FLOP_PER_ROW * n / device_ms / 1e9,
-                "grid_device_ms": grid_ms, "grid_bound_ms": grid_bound_ms(n),
-                "grid_bound_share": grid_bound_ms(n) / grid_ms,
-                "plain_grid_ms": time_ms(lambda: fused_step.directional_grid_plain(
-                    obs1, obs2, p1, p2), reps=10)}
+                "library_tf32_ms": library[True], "tflops": FLOP_PER_ROW * n / device_ms / 1e9}
             say("device", s=s, a=a, **row)
 
         cells = ("encoder", "decoder")
@@ -620,12 +800,19 @@ def device_phase(dev, rng, model, params, rollout_ms) -> dict:
             "rollout_ms": rollout_ms, "pack_share_of_rollout": pack_ms / rollout_ms,
             "cached_share_of_rollout": cached_ms / rollout_ms}
     say("weight_prep", **prep)
+    grid = grid_stage_rows(fused_step, dev, rng)
+    for (s, a), row in grid.items():
+        say("device_grid", s=s, a=a, **row)
     print("Device  " + "  ".join(
         "S={} A={}: {:.4f} ms/step ({:.0%} of the {:.4f} ms bound), library f32 {:.4f} / "
         "tf32 {:.4f} ms".format(s, a, r["device_ms"], r["bound_share"], r["bound_ms"],
                                 r["library_f32_ms"], r["library_tf32_ms"])
         for (s, a), r in shapes.items()), flush=True)
-    return {"shapes": shapes, "prep": prep}
+    print("Grid  " + "  ".join(
+        "S={} A={}: {:.2f} us ({:.0%} of the {:.2f} us bound)".format(
+            s, a, 1e3 * r["device_ms"], r["bound_share"], 1e3 * r["bound_ms"])
+        for (s, a), r in grid.items()), flush=True)
+    return {"shapes": shapes, "prep": prep, "grid": grid}
 
 
 def pool_models() -> dict:
@@ -746,7 +933,8 @@ def pools_phase(dev, rng) -> dict:
 
     # the grid stage alone at the geometries the grid route gives it: n=8,
     # n=12, n=12 with front, and pool_size 2 (side 24 at half the cell);
-    # kernel against plain, bit-exact, and both timed
+    # kernel against plain, bit-exact; the kernel's device time against its
+    # bound at that side, and the time per call of both
     geometries = {"n8": dict(n=8), f"n{N}": dict(n=N), f"n{N}_front": dict(n=N, front=True),
                   f"n{2 * N}_pool2": GridBasedPooling(
                       type_="directional", n=N, cell_side=CELL_SIDE, pool_size=2).grid_stage_args}
@@ -762,9 +950,15 @@ def pools_phase(dev, rng) -> dict:
             if not torch.equal(got, want):
                 bad = (got != want).nonzero()[:5].tolist()
                 raise AssertionError(f"grid {tag} differs at S={s} A={a}: first cells {bad}")
+            def kernel():
+                return fused_step.directional_grid(obs1, obs2, p1, p2, **geometry)
+
+            device_us = 1e3 * kernel_ms_per_launch(kernel, GRID_REPS, "directional_grid_kernel")
+            bound_us = 1e3 * grid_bound_ms(s * a, geometry["n"])
             grid_us[f"S{s}xA{a}_{tag}"] = {
-                "kernel_us": 1e3 * time_ms(lambda: fused_step.directional_grid(
-                    obs1, obs2, p1, p2, **geometry), reps=50),
+                "n": geometry["n"], "device_us": device_us, "bound_us": bound_us,
+                "bound_share": bound_us / device_us,
+                "per_call_us": 1e3 * time_ms(kernel, reps=50),
                 "plain_us": 1e3 * time_ms(lambda: fused_step.directional_grid_plain(
                     obs1, obs2, p1, p2, **geometry), reps=50),
                 "cells_hit": int((got != 0).sum())}
@@ -867,7 +1061,7 @@ def pools_phase(dev, rng) -> dict:
             train_scenes_per_s=TRAIN_BATCH / step_ms * 1e3, step_peak_bytes=peak)
     print("Pools  " + "  ".join(f"{m} {s}x{a}: {ms:.2f} ms"
                                 for (m, s, a), ms in rollout_ms.items()), flush=True)
-    return {"launches": totals, "grid_err": grid_err}
+    return {"launches": totals, "grid_err": grid_err, "grid": grid_us}
 
 
 def main() -> int:
@@ -907,11 +1101,14 @@ def main() -> int:
     t0 = time.perf_counter()
     build.load_library()
     log = build.library_path().with_suffix(".log")
-    ptxas = [line.strip() for line in log.read_text().splitlines()
-             if "registers" in line or "spill" in line] if log.exists() else []
+    ptxas = ([line.strip() for line in log.read_text().splitlines()
+              if "registers" in line or "spill" in line or "entry function" in line]
+             if log.exists() else [])
     sass = sass_counts(build.library_path())
     if sass is not None and not sass.get("fused_step_kernel", {}).get("HGMMA"):
         raise AssertionError(f"fused_step_kernel has no tensor-core instruction: {sass}")
+    if sass is not None and not sass.get("directional_grid_kernel", {}).get("STG.E.128"):
+        raise AssertionError(f"directional_grid_kernel has no 16-byte store: {sass}")
     say("build", seconds=round(time.perf_counter() - t0, 3), nvcc_seconds=build.build_seconds,
         dims=build.kernel_dims(), ptxas=ptxas, sass=sass)
 
@@ -934,6 +1131,21 @@ def main() -> int:
             bad = (got != want).nonzero()[:5].tolist()
             raise AssertionError(f"grid differs at A={a}: first cells {bad}")
         say("grid", a=a, s=s, bit_exact=True, cells_hit=int((got != 0).sum()))
+    for case in grid_edge_cases(np.random.default_rng(3)):
+        obs1, obs2 = (torch.from_numpy(x).to(dev) for x in (case.obs1, case.obs2))
+        p1, p2 = (torch.from_numpy(x).to(dev) for x in (case.p1, case.p2))
+        got = fused_step.directional_grid(obs1, obs2, p1, p2, **case.geometry)
+        want = fused_step.directional_grid_plain(obs1, obs2, p1, p2, **case.geometry)
+        torch.cuda.synchronize()
+        grid_err = max(grid_err, max_diff([got], [want]))
+        if not torch.equal(got, want):
+            bad = (got != want).nonzero()[:5].tolist()
+            raise AssertionError(f"grid edge case {case.name} differs: first cells {bad}")
+        failed = grid_case_failures(case, got.cpu())
+        if failed:
+            raise AssertionError(f"grid edge case {case.name} misses its rules: {failed}")
+        say("grid_edge", case=case.name, s=case.obs2.shape[0], a=case.obs2.shape[1],
+            bit_exact=True, checks=len(case.checks), **case.geometry)
 
     # ---- 3: fused step, at the buckets and at row counts off the 64-row tile
     step_err = 0.0
@@ -1149,14 +1361,15 @@ def main() -> int:
 
     main_s, main_a = ROLLOUTS[0]
     main_device = device["shapes"][(main_s, main_a)]
-    source = "trajnetplusplusbaselines_torch/csrc/fused_step.cu"
+    train_grid = device["grid"][(TRAIN_BATCH, 8)]
+    csrc = "trajnetplusplusbaselines_torch/csrc/"
     by_path = {name: {"serve": main_launches[name], "train": train["launches"][name],
                       "pools": pools["launches"][name]}
                for name in main_launches}
     print(json.dumps({"kernels": [{
         "name": "fused_dlstm_step",
         "route": "cuda",
-        "source": source,
+        "source": csrc + "fused_step.cu",
         "replaces": "trajnetplusplusbaselines_tpu/ops/pallas/fused_step.py:52",
         "launches": sum(by_path["fused_dlstm_step"].values()),
         "launches_by_path": by_path["fused_dlstm_step"],
@@ -1174,19 +1387,24 @@ def main() -> int:
         # and by every other directional grid
         "name": "directional_grid",
         "route": "cuda",
-        "source": source,
+        "source": csrc + "directional_grid.cu",
         "replaces": "trajnetplusplusbaselines_tpu/ops/pallas/fused_step.py:76",
         "launches": sum(by_path["directional_grid"].values()),
         "launches_by_path": by_path["directional_grid"],
         "max_abs_err": max(grid_err, pools["grid_err"]),
-        "ms": train["grid_ms"],
+        # device time per launch at a train step's S=8, A=8, and its bound there
+        "ms": train_grid["device_ms"],
+        "device_ms": train_grid["device_ms"],
         "plain_ms": train["plain_grid_ms"],
-        "bound_ms": grid_bound_ms(TRAIN_BATCH * 8),
+        "bound_ms": train_grid["bound_ms"],
         "bound_by": "bytes",
+        "bound_share": train_grid["bound_share"],
+        "per_call_ms": train["grid_ms"],
+        # no single PyTorch call computes a last-write-wins scatter: index_put_
+        # and scatter_ leave the winner among duplicate indices unspecified
         "library_ms": None,
-        "shapes": {f"{s}x{a}": {k: row[k] for k in ("rows", "grid_device_ms", "grid_bound_ms",
-                                                    "grid_bound_share", "plain_grid_ms")}
-                   for (s, a), row in device["shapes"].items()},
+        "shapes": {f"{s}x{a}": row for (s, a), row in device["grid"].items()},
+        "geometries": pools["grid"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

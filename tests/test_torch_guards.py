@@ -35,14 +35,18 @@ def _port_modules():
     return sorted(names)
 
 
+# the scripts that drive the port on the card
+SCRIPTS = ("chip_smoke", "grid_stage_times")
+
+
 def test_port_imports_no_jax():
-    """Importing every module of the port and ``chip_smoke`` (without running
-    it) loads neither jax nor optax nor anything of the JAX package."""
+    """Importing every module of the port and its scripts (without running
+    them) loads neither jax nor optax nor anything of the JAX package."""
     modules = _port_modules()
     assert len(modules) > 30 and "trajnetplusplusbaselines_torch.data.reader" in modules
     code = (
         "import importlib, sys\n"
-        f"for name in {modules + ['chip_smoke']!r}:\n"
+        f"for name in {modules + list(SCRIPTS)!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m in ('jax', 'optax') or m.startswith(('jax.', 'jaxlib', 'optax.',\n"
@@ -59,13 +63,13 @@ def test_port_imports_no_jax():
 
 
 def test_port_sources_import_nothing_of_the_jax_package():
-    """No ``import`` statement anywhere in the port or ``chip_smoke.py``, at
-    module level or inside a function, names jax, optax or the JAX package."""
+    """No ``import`` statement anywhere in the port or its scripts, at module
+    level or inside a function, names jax, optax or the JAX package."""
     import ast
 
     files = [os.path.join(REPO, *m.split(".")) for m in _port_modules()]
     files = [f + ".py" if os.path.exists(f + ".py") else os.path.join(f, "__init__.py")
-             for f in files] + [os.path.join(REPO, "chip_smoke.py")]
+             for f in files] + [os.path.join(REPO, f"{name}.py") for name in SCRIPTS]
     banned = ("jax", "jaxlib", "optax", "trajnetplusplusbaselines_tpu")
     found = []
     for path in files:

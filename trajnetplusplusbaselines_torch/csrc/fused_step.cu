@@ -6,7 +6,8 @@
 // fused_step.py:_kernel (:52, launched by fused_dlstm_step).  It computes what
 // that kernel computes, in the port's scene-major layout: every tensor is
 // [S, A, F] contiguous, flattened to S*A agent rows, and A is taken at run
-// time (any A >= 1).
+// time (any A >= 1).  The grid's cell and value rules are grid.cuh's, shared
+// with the grid stage alone (directional_grid.cu).
 //
 // What bounds it.  Per agent row the step is 303,868 multiply-adds, almost
 // all of them in three products: the grid embedding [288]x[288,256] and the
@@ -55,8 +56,8 @@
 //   16-row tiles' per row.
 // - The rest of a block's time is latency, at 8 warps per SM: the grid is
 //   filled with `constant` and each neighbour that won its cell writes it,
-//   one pass over the (row, neighbour) pairs where the grid stage's gather
-//   passes over every cell (the same cells and values); the old hidden
+//   one pass over the (row, neighbour) pairs (the cells and values of
+//   grid.cuh, as in the grid stage alone, directional_grid.cu); the old hidden
 //   state is loaded into registers first and stored where the winner array
 //   was; the tile's presence, velocities, gate biases and Hidden2Normal
 //   rows are staged in shared memory; the old cell state is loaded under
@@ -69,22 +70,11 @@
 //   writes pooled columns into it.  The winner array lies behind the grid,
 //   in space that h takes after the build.
 
-// Exactness of the grid: the cell index is (pos_j - pos_i) / cell_side + n/2
-// with IEEE division, in that order (the __f*_rn intrinsics are never
-// contracted or rewritten), so neighbours on a cell boundary land in the same
-// cell as in the plain version.  Build without --use_fast_math.
-//
-// The grid stage alone (directional_grid_kernel) takes the grid's side n at
-// run time, up to GRID_MAX_N, and the `front` offset, so it serves every
-// directional grid of the LSTM family: a pool_size sub-division is the same
-// grid at side n * pool_size and cell side cell_side / pool_size, and the
-// blur and the pool_size sum run on its output in PyTorch.  Its winner array
-// is dynamic shared memory of ROWS * n * n ints (64 KB at GRID_MAX_N).  The
-// fused step keeps its compiled widths below: its matmuls depend on them.
-
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "grid.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -100,13 +90,7 @@ constexpr int IN = EMB + POOL;     // LSTM input width
 constexpr int H = 128;             // hidden_dim
 constexpr int NORMAL = 5;
 constexpr int THREADS = 256;
-constexpr int GRID_MAX_N = 32;     // largest grid side of the grid stage alone
 
-// the grid stage alone: agent rows per block
-constexpr int ROWS = 16;
-constexpr size_t GRID_SMEM_MAX_BYTES = sizeof(int) * ROWS * GRID_MAX_N * GRID_MAX_N;
-
-// the fused step
 constexpr int TILE = 64;                          // agent rows per block: one wgmma M
 constexpr int CLUSTER = 2;                        // blocks per row tile
 constexpr int WGS = THREADS / 128;                // warpgroups per block
@@ -142,7 +126,6 @@ constexpr int SM_BARS = SM_WSM + (4 + NORMAL) * UNITS * WGS;
 constexpr int SM_WINNER = SM_X + TILE * GRID_STRIDE;  // behind the grid, which aliases x
 constexpr size_t FUSED_SMEM_BYTES = sizeof(float) * SM_BARS + sizeof(uint64_t) * WGS * STAGES;
 constexpr int H_LOADS = TILE * H / 4 / THREADS;   // float4 loads of h per thread
-constexpr int MAX_DEVICES = 64;    // devices the shared-memory opt-in is tracked for
 
 static_assert(THREADS % 128 == 0 && RANK_ROWS % 16 == 0,
               "Hidden2Normal: a warp's rows go to one rank");
@@ -158,49 +141,6 @@ static_assert(SM_X % 4 == 0 && SM_XH % 4 == 0 && SM_WINNER % 4 == 0 && SM_BARS %
 static_assert(FUSED_SMEM_BYTES <= 232448, "227 KB of shared memory per block");
 static_assert(STAGES <= CHUNKS, "ring");
 static_assert((TILE * H / 4) % THREADS == 0, "h in whole float4 loads per thread");
-
-struct Scene {
-  const float* obs1;   // [S*A, 2]
-  const float* obs2;   // [S*A, 2]
-  const uint8_t* p1;   // [S*A]
-  const uint8_t* p2;   // [S*A]
-  int rows;            // S*A
-  int a;
-  float cell_side;
-  float constant;
-};
-
-// The grid's geometry: side n and the offset added to the cell coordinates
-// (n/2 on both axes, or n/2 and 0 for a grid in front of the agent).
-struct Geom {
-  int n;
-  float half_x;
-  float half_y;
-};
-
-// Where neighbour j (flat row rj) writes in the grid of agent i (flat row ri),
-// and whether the write is in range (else it writes `constant` into cell 0).
-__device__ __forceinline__ int write_cell(const Scene& sc, const Geom& gm, int ri, int rj,
-                                          bool* in_range) {
-  float ox = __fadd_rn(__fdiv_rn(__fsub_rn(sc.obs2[2 * rj], sc.obs2[2 * ri]), sc.cell_side), gm.half_x);
-  float oy = __fadd_rn(__fdiv_rn(__fsub_rn(sc.obs2[2 * rj + 1], sc.obs2[2 * ri + 1]), sc.cell_side), gm.half_y);
-  const float n = (float)gm.n;
-  bool ok = sc.p2[ri] && sc.p2[rj] && ox >= 0.0f && ox < n && oy >= 0.0f && oy < n;
-  *in_range = ok;
-  // trunc equals floor here: negative values are out of range
-  return ok ? (int)ox * gm.n + (int)oy : 0;
-}
-
-// The relative velocity of neighbour rw in agent row's grid, zero unless
-// both are present at t-1 and t.
-__device__ __forceinline__ float2 rel_velocity(const Scene& sc, int row, int rw) {
-  bool both = sc.p1[row] && sc.p2[row] && sc.p1[rw] && sc.p2[rw];
-  if (!both) return make_float2(0.0f, 0.0f);
-  return make_float2(__fsub_rn(__fsub_rn(sc.obs2[2 * rw], sc.obs1[2 * rw]),
-                               __fsub_rn(sc.obs2[2 * row], sc.obs1[2 * row])),
-                     __fsub_rn(__fsub_rn(sc.obs2[2 * rw + 1], sc.obs1[2 * rw + 1]),
-                               __fsub_rn(sc.obs2[2 * row + 1], sc.obs1[2 * row + 1])));
-}
 
 // Last write wins: winner[r * n * n + cell] becomes the highest j that
 // writes the cell in row row0 + r's grid, for R rows; it is -1 before, and
@@ -221,50 +161,6 @@ __device__ __forceinline__ void scatter_winners(const Scene& sc, const Geom& gm,
     atomicMax(&winner[r * g_cells + cell], j);
   }
   __syncthreads();
-}
-
-// Builds the directional grids of rows [row0, row0 + rows_out) into out
-// (row-major [rows_out, 2 * n * n], channel-major within a row); winner is
-// shared scratch of ROWS * n * n ints.  Every (row, cell) gathers its
-// winner's value, or `constant` where no neighbour wrote; rows past the end
-// of the scene batch get `constant` everywhere.
-__device__ __forceinline__ void build_grid(const Scene& sc, const Geom& gm, int row0, int* winner,
-                                           float* out, int rows_out) {
-  const int g_cells = gm.n * gm.n;
-  for (int idx = threadIdx.x; idx < ROWS * g_cells; idx += blockDim.x) winner[idx] = -1;
-  __syncthreads();
-  scatter_winners<ROWS>(sc, gm, row0, winner);
-  for (int idx = threadIdx.x; idx < rows_out * g_cells; idx += blockDim.x) {
-    int r = idx / g_cells, g = idx - (idx / g_cells) * g_cells;
-    int row = row0 + r;
-    float vx = sc.constant, vy = sc.constant;
-    int w = winner[idx];
-    if (row < sc.rows && w >= 0) {
-      int i = row % sc.a;
-      int rw = row - i + w;
-      bool in_range;
-      write_cell(sc, gm, row, rw, &in_range);
-      if (in_range) {
-        float2 v = rel_velocity(sc, row, rw);
-        vx = v.x;
-        vy = v.y;
-      }
-    }
-    out[r * 2 * g_cells + g] = vx;
-    out[r * 2 * g_cells + g_cells + g] = vy;
-  }
-  __syncthreads();
-}
-
-// The grid stage alone: grid_out [S*A, 2 * n * n], written straight to
-// device memory (neighbouring threads write neighbouring cells).
-__global__ void __launch_bounds__(THREADS) directional_grid_kernel(Scene sc, Geom gm,
-                                                                   float* grid_out) {
-  extern __shared__ float smem[];
-  int* winner = reinterpret_cast<int*>(smem);  // [ROWS, n * n]
-  int row0 = blockIdx.x * ROWS;
-  int rows_out = min(ROWS, sc.rows - row0);
-  build_grid(sc, gm, row0, winner, grid_out + (size_t)row0 * 2 * gm.n * gm.n, rows_out);
 }
 
 // ------------------------------------------------ Hopper primitives (PTX)
@@ -511,7 +407,7 @@ __device__ __forceinline__ void gemm(float (&acc)[NA], const Ring& ring, ASrcOf 
 // The fused step's grid of rows [row0, row0 + TILE), row r at out + r *
 // GRID_STRIDE, already filled with `constant`: each neighbour that won its
 // cell in scatter_winners writes its value there.  The same cells and
-// values as build_grid's gather.
+// values as the grid stage alone.
 __device__ __forceinline__ void write_winners(const Scene& sc, int row0, const int* winner,
                                               float* out) {
   const Geom gm{N, 0.5f * N, 0.5f * N};
@@ -749,43 +645,12 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS, 1) fu
   }
 }
 
-// Above 48 KB of dynamic shared memory only after opting in, once per device.
-cudaError_t opt_in(const void* kernel, size_t bytes, bool* opted_in) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (!opted_in[dev]) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return err;
-    opted_in[dev] = true;
-  }
-  return cudaSuccess;
-}
-
 }  // namespace
 
 extern "C" {
 
 // All tensors [S, A, F] contiguous on the current device; present masks are
 // one byte per agent (torch.bool).  Returns cudaGetLastError() after launch.
-
-// grid_out [S, A, 2 * n * n] for 1 <= n <= GRID_MAX_N; `front` puts the
-// agent on the grid's edge (offsets n/2 and 0) instead of its centre.
-int dlstm_directional_grid(const float* obs1, const float* obs2, const uint8_t* p1,
-                           const uint8_t* p2, float* grid_out, int s, int a, int n,
-                           float cell_side, int front, float constant, void* stream) {
-  if (n < 1 || n > GRID_MAX_N) return (int)cudaErrorInvalidValue;
-  static bool opted_in[MAX_DEVICES] = {};
-  cudaError_t err = opt_in((const void*)directional_grid_kernel, GRID_SMEM_MAX_BYTES, opted_in);
-  if (err != cudaSuccess) return (int)err;
-  Scene sc{obs1, obs2, p1, p2, s * a, a, cell_side, constant};
-  Geom gm{n, 0.5f * n, front ? 0.0f : 0.5f * n};
-  int blocks = (sc.rows + ROWS - 1) / ROWS;
-  size_t smem = sizeof(int) * ROWS * n * n;
-  directional_grid_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(sc, gm, grid_out);
-  return (int)cudaGetLastError();
-}
 
 // w_pack: the packed weight streams (ops/cuda/fused_step.pack_weights), read
 // by bulk copies, and h, read by 16-byte loads: both 16-byte aligned.

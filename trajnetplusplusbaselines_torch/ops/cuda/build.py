@@ -1,15 +1,16 @@
 """Build and bind the package's CUDA kernels.
 
 At first use, ``load_library()`` compiles every ``csrc/*.cu`` of the package
-with ``nvcc`` into one shared library with a plain C interface and loads it
-with ``ctypes``:
+with ``nvcc``, one process per source, all started together:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC -c
 
-The library lands in ``build/torch_kernels/`` at the root of the checkout,
-named by a hash of the sources and flags, so a changed source rebuilds and an
-unchanged one loads what is there.  No fast-math flags: the grid's cell
-indices rely on IEEE division.  A missing ``nvcc`` or a failed build raises;
+then links the objects into one shared library with a plain C interface
+(``nvcc -shared``) and loads it with ``ctypes``.  The library lands in
+``build/torch_kernels/`` at the root of the checkout, named by a hash of the
+sources, their headers (``csrc/*.cuh``) and the flags, so a changed source
+rebuilds and an unchanged one loads what is there.  No fast-math flags: the
+grid's cell indices rely on IEEE division.  A missing ``nvcc`` or a failed build raises;
 nothing hands the work to the plain path.
 
 Import this module only where a kernel is launched: the CPU tests import
@@ -28,7 +29,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # seconds the build took in this process (0.0 when the library was already
 # built); chip_smoke.py reports it
@@ -63,7 +64,7 @@ def _sources():
 
 def library_path() -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted([*_sources(), *CSRC.glob("*.cuh")]):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libtrajnet_kernels_{digest.hexdigest()[:16]}.so"
@@ -76,15 +77,28 @@ def build() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    nvcc, tag, sources = _nvcc(), f"{os.getpid()}.tmp", _sources()
+    objects = [lib.with_suffix(f".{src.stem}.{tag}.o") for src in sources]
+    steps = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+             for src, obj in zip(sources, objects)]
+    link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(lib.with_suffix(f".{tag}")),
+            *map(str, objects)]
     start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in steps]
+    runs = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in zip(steps, procs)]
+    if all(rc == 0 for _, _, rc in runs):
+        proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        runs.append((link, proc.stdout, proc.returncode))
     build_seconds = time.perf_counter() - start
-    lib.with_suffix(".log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, lib)
+    lib.with_suffix(".log").write_text("".join(" ".join(cmd) + "\n" + out for cmd, out, _ in runs))
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    failed = [(cmd, out, rc) for cmd, out, rc in runs if rc != 0]
+    if failed:
+        cmd, out, rc = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out[-4000:]}")
+    os.replace(lib.with_suffix(f".{tag}"), lib)
     return lib
 
 

@@ -8,7 +8,10 @@ model: the velocity and input embedding, the 12x12x2 directional grid,
 state update.  The kernel is ``csrc/fused_step.cu``: its three products run
 on the tensor cores (wgmma, TF32 split into high and low parts, f32
 accuracy), a cluster of two blocks per 64-row tile, with the weights
-streamed into shared memory; its head says what bounds it on the card.
+streamed into shared memory.  The grid stage alone, ``directional_grid``, is
+``csrc/directional_grid.cu``: scene rows staged in shared memory once, the
+last write per cell found by a warp per row, the tile stored in 16-byte
+stores.  Each source's head says what bounds it on the card.
 
 Layout is scene-major ``[S, A, F]`` contiguous, as in ``models/lstm.py``.
 
