@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's LSTM family, serving and training, on one NVIDIA card.
+"""Smoke run of the PyTorch port (LSTM family, SGAN, VAE) serving and training on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -75,7 +75,20 @@ PyTorch built for CUDA (no jax needed).  Phases, one line each:
        model, none for the others; each pickle served through ``lstm_cli``;
    (c) a train step of social and of attentionmlp on the card in f32
        against f64 on the CPU at phase 6's tolerances, its time, and the
-       memory high-water mark of a social step.
+       memory high-water mark of a social step;
+8. generative (the SGAN and the VAE), at the flagship's widths, noise 16,
+   latent 128 with ``desire``, k=3 modes folded into one decoder batch:
+   (a) rollouts at S=64, A=8 and S=256, A=32: 19 fused-step launches per
+       rollout, positions within 1e-3 m of a CPU run on the same noise or
+       latent normals, times (CUDA events) as a range over 3 windows;
+   (b) an SGAN generator and discriminator step and a VAE step at batch 8
+       against f64 on the CPU at phase 7c's tolerances, label and draws
+       pinned, with their launches (19 grid-stage; 19 fused and 40
+       grid-stage; 30 grid-stage) and times;
+   (c) ``trainers.sgan.main`` and ``trainers.vae.main`` (--k 3), one epoch
+       each at batch 8 on a split of phase 6's sizes, their launches held
+       to the batches, and each pickle served through ``sgan_cli`` /
+       ``vae_cli --modes 3``.  Every time is printed beside the card.
 
 Then one JSON line of the kernels and, last, ``{"ok": true, "device": ...}``.
 Any failed phase raises, so the script exits non-zero and prints no result;
@@ -85,8 +98,9 @@ so does a machine without CUDA or a directory without the package.
 
 adds a profile phase before the last two lines: kernel and plain times at
 larger rollouts, and ``torch.profiler`` tables of warm rollouts, of a warm
-``predict_dataset`` pass, of warm train steps, and of phase 7's pool
-rollouts and train steps, written into OUT_DIR.
+``predict_dataset`` pass, of warm train steps, of phase 7's pool rollouts
+and train steps, and of phase 8's folded rollouts and train steps, written
+into OUT_DIR.
 """
 
 import argparse
@@ -158,6 +172,12 @@ POOL_TRAINED = (("social", False), ("attentionmlp", False), ("nn_lstm", False),
                 ("directional", True))
 POOL_SPLIT = (320, 96, 64)  # train, val, test scenes
 NEIGHBOUR_GAP = 1e-4  # metres between an agent's nearest neighbour distances
+# phase 8: the SGAN and the VAE at the flagship's widths, k modes folded
+GEN_MODES, GEN_NOISE_DIM, GEN_LATENT = 3, 16, 128
+GEN_ROLLOUTS = ((BATCH_SCENES, 8), (256, 32))
+GEN_TIMED_REPEATS = 3  # timed windows per rollout, each of GEN_TIMED_REPS rollouts
+GEN_TIMED_REPS = 5
+GEN_LABEL = 0.9  # the smoothed real label of the checked GAN steps
 
 
 def step_bound(rows):
@@ -815,6 +835,35 @@ def device_phase(dev, rng, model, params, rollout_ms) -> dict:
     return {"shapes": shapes, "prep": prep, "grid": grid}
 
 
+class Launches:
+    """The launch counters of the port's two kernels, zeroed just before a
+    run and read just after it, with a running total by kernel of the runs
+    read into it."""
+
+    def __init__(self):
+        from trajnetplusplusbaselines_torch.ops.cuda import fused_step
+
+        self.kernels = (("fused_dlstm_step", fused_step.fused_dlstm_step),
+                        ("directional_grid", fused_step.directional_grid))
+        self.totals = {name: 0 for name, _ in self.kernels}
+
+    def zero(self):
+        for _, fn in self.kernels:
+            fn.launches = 0
+
+    def read(self, want, add=True) -> dict:
+        """The counts since ``zero``, held to ``want``; ``add`` takes them
+        into the totals."""
+        torch.cuda.synchronize()
+        got = {name: fn.launches for name, fn in self.kernels}
+        if add:
+            for name in self.totals:
+                self.totals[name] += got[name]
+        if got != want:
+            raise AssertionError(f"launched {got}, expected {want}")
+        return got
+
+
 def pool_models() -> dict:
     """Phase 7's models, name -> ``LSTM``: the ten pooled ``--type`` values
     at ``make_pool``'s trainer defaults, a two-layer S-LSTM, a stateful
@@ -879,21 +928,8 @@ def pools_phase(dev, rng) -> dict:
     from trajnetplusplusbaselines_torch.trainers.common import Batch
     from trajnetplusplusbaselines_torch.utils.convert import params_to
 
-    kernels = (("fused_dlstm_step", fused_step.fused_dlstm_step),
-               ("directional_grid", fused_step.directional_grid))
-    totals = {name: 0 for name, _ in kernels}
-
-    def zero():
-        for _, fn in kernels:
-            fn.launches = 0
-
-    def read(want):
-        got = {name: fn.launches for name, fn in kernels}
-        for name in totals:
-            totals[name] += got[name]
-        if got != want:
-            raise AssertionError(f"launched {got}, expected {want}")
-        return got
+    counters = Launches()
+    zero, read = counters.zero, counters.read
 
     # (a) rollouts of every pool at two shapes, card against CPU
     inputs = {shape: pool_inputs(rng, *shape, dev) for shape in POOL_ROLLOUTS}
@@ -1061,7 +1097,242 @@ def pools_phase(dev, rng) -> dict:
             train_scenes_per_s=TRAIN_BATCH / step_ms * 1e3, step_peak_bytes=peak)
     print("Pools  " + "  ".join(f"{m} {s}x{a}: {ms:.2f} ms"
                                 for (m, s, a), ms in rollout_ms.items()), flush=True)
-    return {"launches": totals, "grid_err": grid_err, "grid": grid_us}
+    return {"launches": counters.totals, "grid_err": grid_err, "grid": grid_us}
+
+
+def generative_models() -> dict:
+    """Phase 8's models at the flagship's widths (directional n=12, cell
+    0.6 m, pool 256, embedding 64, hidden 128): an SGAN (noise 16, k=3, the
+    discriminator with its own pool) and a VAE (latent 128, desire, k=3)."""
+    from trajnetplusplusbaselines_torch.models.sgan import SGAN, LSTMDiscriminator, LSTMGenerator
+    from trajnetplusplusbaselines_torch.models.vae import VAE
+    from trajnetplusplusbaselines_torch.ops.pooling import GridBasedPooling
+
+    def pool():
+        return GridBasedPooling(type_="directional", hidden_dim=128, cell_side=CELL_SIDE, n=N,
+                                out_dim=256)
+
+    generator = LSTMGenerator(pool=pool(), noise_dim=GEN_NOISE_DIM)
+    models = {"sgan": SGAN(generator, LSTMDiscriminator(pool=pool()), k=GEN_MODES),
+              "vae": VAE(pool=pool(), num_modes=GEN_MODES, latent_dim=GEN_LATENT)}
+    if not (generator.fused and models["vae"].fused):
+        raise AssertionError("phase 8's models are not at the fused step's widths")
+    return models
+
+
+def generative_rollout(kind, model, params, xy, mask, draws):
+    """(pred [k, 19, S, A, 2], valid) of GEN_MODES folded modes, without
+    autograd: an SGAN's noise or a VAE's latent normals given as ``draws``."""
+    with torch.no_grad():
+        if kind == "sgan":
+            return model.generate(params, xy, mask, n_predict=12, modes=GEN_MODES,
+                                  noise=draws)[1:]
+        return model.forward(params, xy, mask, n_predict=12, training=False, modes=GEN_MODES,
+                             eps=draws)[1:3]
+
+
+def generative_steps(kind, model, params, dev, rng, card, counted) -> dict:
+    """Phase 8b: one SGAN generator and discriminator step, or one VAE step,
+    at batch 8 on the card in f32 against f64 on the CPU (phase 7c's
+    tolerances), noise, latent normals and label pinned; the launches of
+    each step on the card (``counted``) and its time."""
+    from trajnetplusplusbaselines_torch.trainers import sgan as sgan_trainer
+    from trajnetplusplusbaselines_torch.trainers import vae as vae_trainer
+    from trajnetplusplusbaselines_torch.trainers.common import Batch, step_lr
+    from trajnetplusplusbaselines_torch.utils.convert import params_from_jax, params_to_numpy
+
+    xy, mask, scene = train_inputs(rng, TRAIN_BATCH, 8, dev)
+    batch = Batch(xy, mask, scene, torch.zeros_like(xy[0]), mask.any(dim=0))
+    cpu_batch = Batch(*(x.cpu() for x in batch))
+    gen = torch.Generator().manual_seed(5)
+
+    def trainer(device, dtype):
+        own = params_from_jax(params_to_numpy(params), device=device, dtype=dtype)
+        if kind == "sgan":
+            return sgan_trainer.Trainer(model, own, step_lr(1e-3, 10), step_lr(1e-3, 10))
+        return vae_trainer.Trainer(model, own, step_lr(1e-3, 10))
+
+    card_tr, cpu_tr = trainer(dev, torch.float32), trainer("cpu", torch.float64)
+    rows = {}
+    if kind == "sgan":
+        noise = torch.randn(GEN_MODES, GEN_NOISE_DIM, generator=gen)
+        steps = {"g": (card_tr.g_loss_and_grads, cpu_tr.g_loss_and_grads, noise, card_tr.g_paths,
+                       {"directional_grid": 19, "fused_dlstm_step": 0}),
+                 "d": (card_tr.d_loss_and_grads, cpu_tr.d_loss_and_grads, noise[:1],
+                       card_tr.d_paths, {"directional_grid": 40, "fused_dlstm_step": 19})}
+        for step_type, (on_card, on_cpu, draws, paths, want) in steps.items():
+            got = counted(lambda: on_card(*batch, noise=draws.to(dev), label=GEN_LABEL), want)
+            loss_rel, grad_err = step_errors(
+                got, on_cpu(*cpu_batch, noise=draws.double(), label=GEN_LABEL), paths)
+            rows[step_type] = {"cpu_loss_rel_err": loss_rel, "cpu_grad_max_err_share": grad_err,
+                               "launches": want}
+        for step_type, row in rows.items():  # the timed steps train: after the checks
+            row["train_step_ms"] = time_ms(
+                lambda: card_tr.train_step(*batch, step_type=step_type), reps=10)
+    else:
+        eps = torch.randn(GEN_MODES, TRAIN_BATCH, 8, GEN_LATENT, generator=gen)
+        want = {"directional_grid": 30, "fused_dlstm_step": 0}
+        got = counted(lambda: card_tr.loss_and_grads(*batch, eps=eps.to(dev)), want)
+        loss, _, grads = cpu_tr.loss_and_grads(*cpu_batch, eps=eps.double())
+        loss_rel, grad_err = step_errors((got[0], got[2]), (loss, grads), card_tr.paths)
+        rows["vae"] = {"cpu_loss_rel_err": loss_rel, "cpu_grad_max_err_share": grad_err,
+                       "launches": want,
+                       "train_step_ms": time_ms(lambda: card_tr.train_step(*batch), reps=10)}
+    for step, row in rows.items():
+        say("generative_step", model=kind, step=step, batch=list(batch.xy.shape), card=card,
+            **row)
+    return rows
+
+
+def generative_phase(dev, rng, card) -> dict:
+    """Phase 8: the SGAN and the VAE, served and trained, on the card.
+
+    (a) rollouts of GEN_MODES modes folded at GEN_ROLLOUTS: 19 fused-step
+        launches per rollout whatever the modes, positions within 1e-3 m of
+        a CPU run of the same model on the same draws (its first
+        POOL_CPU_SCENES scenes), and each rollout's time (CUDA events) over
+        GEN_TIMED_REPEATS windows of GEN_TIMED_REPS rollouts, as a range;
+    (b) ``generative_steps``;
+    (c) ``trainers.sgan.main`` (--k 3) and ``trainers.vae.main`` (--k 3),
+        one epoch each at batch 8 on a split of phase 6's sizes, the
+        launches of each counted against the batches (19 grid-stage
+        launches per generator forward), then each pickle served through
+        ``sgan_cli`` / ``vae_cli --modes 3`` (predict, write, evaluate).
+
+    Returns the launch counts of (a) and (c) by kernel."""
+    from trajnetplusplusbaselines_torch.evaluator import sgan_cli, vae_cli
+    from trajnetplusplusbaselines_torch.evaluator.learned import bucket_plan
+    from trajnetplusplusbaselines_torch.trainers import sgan as sgan_trainer
+    from trajnetplusplusbaselines_torch.trainers import vae as vae_trainer
+    from trajnetplusplusbaselines_torch.utils.convert import params_to
+
+    counters = Launches()
+    zero, read = counters.zero, counters.read
+
+    def counted(fn, want):
+        """fn() with the launches it makes held to ``want``, which phase 8's
+        totals do not take (a comparison with the CPU)."""
+        zero()
+        out = fn()
+        read(want, add=False)
+        return out
+
+    models = generative_models()
+    params = {kind: model.init_params(torch.Generator().manual_seed(11), device=dev)
+              for kind, model in models.items()}
+    gen = torch.Generator().manual_seed(12)
+    rollout_ms = {}
+    for kind, model in models.items():
+        cpu_params = params_to(params[kind], "cpu")
+        for s, a in GEN_ROLLOUTS:
+            xy, mask = rollout_inputs(rng, s, a, dev)
+            draws = (torch.randn(GEN_MODES, GEN_NOISE_DIM, generator=gen) if kind == "sgan"
+                     else torch.randn(GEN_MODES, s, a, GEN_LATENT, generator=gen))
+            card_draws = draws.to(dev)
+            zero()
+            pred, valid = generative_rollout(kind, model, params[kind], xy, mask, card_draws)
+            launches = read({"fused_dlstm_step": 19, "directional_grid": 0})
+            k = POOL_CPU_SCENES
+            cpu_pred, cpu_valid = generative_rollout(
+                kind, model, cpu_params, xy[:, :k].cpu(), mask[:, :k].cpu(),
+                draws if kind == "sgan" else draws[:, :k])
+            if pred.shape != (GEN_MODES, 19, s, a, 2) or not torch.isfinite(pred).all():
+                raise AssertionError(f"{kind}: positions are not finite [k, 19, S, A, 2]")
+            if not torch.equal(valid[:, :, :k].cpu(), cpu_valid):
+                raise AssertionError(f"{kind}: validity differs from the CPU's at S={s} A={a}")
+            err = float((pred[:, :, :k].cpu() - cpu_pred)[cpu_valid].abs().max())
+            if err > POSITION_ATOL:
+                raise AssertionError(f"{kind}: positions differ from the CPU's by {err} m "
+                                     f"at S={s} A={a}")
+            spread = float((pred[0] - pred[1])[valid[0]].abs().max())
+            if not spread > 0:
+                raise AssertionError(f"{kind}: the modes are the same rollout")
+            ms = [time_ms(lambda: generative_rollout(kind, model, params[kind], xy, mask,
+                                                     card_draws),
+                          reps=GEN_TIMED_REPS, warmup=2 if i == 0 else 0)
+                  for i in range(GEN_TIMED_REPEATS)]
+            rollout_ms[(kind, s, a)] = ms
+            say("generative_rollout", model=kind, s=s, a=a, modes=GEN_MODES, launches=launches,
+                max_position_err_m=err, cpu_scenes=k, mode_spread_m=spread,
+                rollout_ms=[min(ms), max(ms)], rollout_scenes_per_s=s / min(ms) * 1e3, card=card)
+
+    steps = {kind: generative_steps(kind, models[kind], params[kind], dev, rng, card, counted)
+             for kind in models}
+
+    cwd = os.getcwd()
+    root = "DATA_BLOCK/synth_gen"
+    served = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            n_train, n_val, n_test = POOL_SPLIT  # phase 6's sizes
+            write_split(root, rng, n_scenes=n_train, big=None, observed_only=(), full=("train",))
+            write_split(root, rng, n_scenes=n_val, big=None, observed_only=(), full=("val",))
+            observed = write_split(root, rng, n_scenes=n_test, big=None)
+            serve_plan = bucket_plan([xy.shape[1] for _, xy in observed], BATCH_SCENES)
+            runs = (("sgan", sgan_trainer.main, sgan_cli, ["--noise_dim", str(GEN_NOISE_DIM)]),
+                    ("vae", vae_trainer.main, vae_cli, ["--vae_latent_dim", str(GEN_LATENT)]))
+            for kind, train_main, cli, extra in runs:
+                zero()
+                t0 = time.perf_counter()
+                trainer = train_main(argv=[
+                    "--path", "synth_gen", "--type", "directional", "--n", str(N),
+                    "--cell_side", str(CELL_SIDE), "--pool_dim", "256", "--hidden-dim", "128",
+                    "--coordinate-embedding-dim", "64", "--epochs", "1",
+                    "--batch_size", str(TRAIN_BATCH), "--seed", "0", "--k", str(GEN_MODES),
+                    "-o", "gen", "--device", DEVICE, *extra])
+                torch.cuda.synchronize()
+                cli_s = time.perf_counter() - t0
+                for handler in logging.getLogger().handlers[:]:  # the trainer's log file
+                    handler.close()
+                    logging.getLogger().removeHandler(handler)
+                (_, resident), (_, val_resident) = trainer._resident.values()
+                batches = [sum(idx.shape[0] for idx, _ in
+                               r.epoch_plan(TRAIN_BATCH, np.random.default_rng(0)).values())
+                           for r in (resident, val_resident)]
+                if kind == "sgan":
+                    kinds = trainer.step_types(batches[0])
+                    g, d = kinds.count("g"), kinds.count("d")
+                    want = {"fused_dlstm_step": 19 * (d + batches[1]),
+                            "directional_grid": 19 * g + 40 * d}
+                else:
+                    want = {"fused_dlstm_step": 30 * batches[1],
+                            "directional_grid": 30 * batches[0]}
+                train_launches = read(want)
+                out = f"OUTPUT_BLOCK/synth_gen/{kind}_directional_gen.pkl"
+                with open(out + ".log") as f:
+                    records = [json.loads(line) for line in f]
+                losses = [r[key] for r in records for key in ("loss", "test_loss")
+                          if r.get("type") in ("train", "train-epoch", "val-epoch") and key in r]
+                if not losses or not np.isfinite(losses).all():
+                    raise AssertionError(f"{kind}: training logged {records}")
+
+                zero()
+                t0 = time.perf_counter()
+                table = cli.main(["--path", "synth_gen", "--output", out, "--modes",
+                                  str(GEN_MODES), "--device", DEVICE])
+                serve_s = time.perf_counter() - t0
+                serve_launches = read({"fused_dlstm_step": 19 * len(serve_plan),
+                                       "directional_grid": 0})
+                scored = table.results[f"{kind}_directional_gen_modes{GEN_MODES}"][32:40]
+                if scored[0] != n_test or not np.isfinite(scored[1:3]).all():
+                    raise AssertionError(f"{kind}: the trained model scored {scored}")
+                served[kind] = scored[1:3]
+                say("generative_train", model=kind, cli_seconds=cli_s, serve_seconds=serve_s,
+                    train_batches=batches[0], val_batches=batches[1],
+                    train_launches=train_launches, serve_launches=serve_launches,
+                    serve_batches=len(serve_plan),
+                    epoch_loss=[r["loss"] for r in records if r.get("type") == "train-epoch"],
+                    served_ade_fde=scored[1:3], card=card)
+        finally:
+            os.chdir(cwd)
+    print("Generative  " + "  ".join(
+        f"{m} {s}x{a} k={GEN_MODES}: {min(ms):.2f}-{max(ms):.2f} ms"
+        for (m, s, a), ms in rollout_ms.items())
+        + "  steps at batch 8: " + "  ".join(
+            f"{kind} {step} {row['train_step_ms']:.1f} ms" for kind, rows in steps.items()
+            for step, row in rows.items()) + f"  ({card})", flush=True)
+    return {"launches": counters.totals}
 
 
 def main() -> int:
@@ -1307,6 +1578,9 @@ def main() -> int:
     # ---- 7: pools: every interaction module, rolled out, trained and served
     pools = pools_phase(dev, rng)
 
+    # ---- 8: the SGAN and the VAE: folded rollouts, train steps, both trainers
+    generative = generative_phase(dev, rng, card)
+
     # ---- profile (optional): larger rollouts and profiler tables
     if opts.profile:
         out = Path(opts.profile)
@@ -1359,12 +1633,42 @@ def main() -> int:
                     **profiled(lambda: trainer.train_step(*batch), 5,
                                out / f"pools_{name}_train_step.txt"))
 
+        # phase 8's models: folded rollouts and train steps at batch 8
+        from trajnetplusplusbaselines_torch.trainers import sgan as sgan_trainer
+        from trajnetplusplusbaselines_torch.trainers import vae as vae_trainer
+
+        b_xy, b_mask, b_scene = train_inputs(rng, TRAIN_BATCH, 8, dev)
+        batch = Batch(b_xy, b_mask, b_scene, torch.zeros_like(b_xy[0]), b_mask.any(dim=0))
+        for kind, gen_model in generative_models().items():
+            gen_params = gen_model.init_params(torch.Generator().manual_seed(11), device=dev)
+            for s, a in GEN_ROLLOUTS:
+                xy, mask = rollout_inputs(rng, s, a, dev)
+                draws = (torch.randn(GEN_MODES, GEN_NOISE_DIM) if kind == "sgan"
+                         else torch.randn(GEN_MODES, s, a, GEN_LATENT)).to(dev)
+                say("profile_trace", what=f"{kind} rollout k={GEN_MODES} S={s} A={a}", card=card,
+                    **profiled(lambda: generative_rollout(kind, gen_model, gen_params, xy, mask,
+                                                          draws), 5,
+                               out / f"generative_{kind}_{s}x{a}.txt"))
+            if kind == "sgan":
+                trainer = sgan_trainer.Trainer(gen_model, gen_params, step_lr(1e-3, 10),
+                                               step_lr(1e-3, 10))
+                steps = {f"{kind}_{t}": (lambda t=t: trainer.train_step(*batch, step_type=t))
+                         for t in ("g", "d")}
+            else:
+                trainer = vae_trainer.Trainer(gen_model, gen_params, step_lr(1e-3, 10))
+                steps = {kind: lambda: trainer.train_step(*batch)}
+            for name, step in steps.items():
+                say("profile_trace", what=f"{name} train_step S={TRAIN_BATCH} A=8", card=card,
+                    **profiled(step, 5, out / f"generative_{name}_train_step.txt",
+                               kernel="directional_grid_kernel"))
+
     main_s, main_a = ROLLOUTS[0]
     main_device = device["shapes"][(main_s, main_a)]
     train_grid = device["grid"][(TRAIN_BATCH, 8)]
     csrc = "trajnetplusplusbaselines_torch/csrc/"
     by_path = {name: {"serve": main_launches[name], "train": train["launches"][name],
-                      "pools": pools["launches"][name]}
+                      "pools": pools["launches"][name],
+                      "generative": generative["launches"][name]}
                for name in main_launches}
     print(json.dumps({"kernels": [{
         "name": "fused_dlstm_step",

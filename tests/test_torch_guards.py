@@ -88,14 +88,16 @@ def test_port_sources_import_nothing_of_the_jax_package():
     assert not found, found
 
 
-def test_cli_default_device_refuses_to_run_on_the_cpu(tmp_path, monkeypatch):
-    from trajnetplusplusbaselines_torch.evaluator import lstm_cli
+@pytest.mark.parametrize("cli", ["lstm_cli", "sgan_cli", "vae_cli"])
+def test_cli_default_device_refuses_to_run_on_the_cpu(tmp_path, monkeypatch, cli):
+    import importlib
 
+    module = importlib.import_module(f"trajnetplusplusbaselines_torch.evaluator.{cli}")
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is available")
     monkeypatch.chdir(tmp_path)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        lstm_cli.main(["--path", "synthset", "--output", "missing.pkl"])
+        module.main(["--path", "synthset", "--output", "missing.pkl"])
     assert not os.path.exists(tmp_path / "DATA_BLOCK")  # nothing ran
 
 

@@ -3,7 +3,9 @@
 Each loss runs in float64 on inputs made with numpy from a seed, with
 padded scenes (zeroed normals, ``scene_mask`` off); value and gradient
 against ``jax.value_and_grad`` at 1e-12.  ``keep_batch_dim`` losses are
-reduced with random weights so every scene's gradient is compared.
+reduced with random weights so every scene's gradient is compared.  The
+generative models' losses (BCE, the GAN's two with the label that the JAX
+package draws from its key passed to the port, the KL divergence) at 1e-10.
 """
 
 import jax
@@ -150,3 +152,58 @@ def test_collision_loss_at_zero_distance():
     ok = np.ones(got_g.shape[:3], bool)
     ok[3, 1, 0] = False
     np.testing.assert_allclose(got_g[ok], want_g[ok], **TOL)
+
+
+GEN_TOL = dict(atol=1e-10, rtol=1e-10)
+
+
+def test_bce_loss_matches_jax():
+    rng = np.random.default_rng(6)
+    logits = rng.normal(scale=4.0, size=(9,))
+    logits[0] = 40.0  # where a naive log(sigmoid) overflows
+    targets = rng.random(9)
+    got_v, got_g, want_v, want_g = _value_and_grad(
+        lambda x: losses.bce_loss(x, torch.from_numpy(targets)),
+        lambda x: jlosses.bce_loss(x, jnp.asarray(targets)), logits)
+    for got, want in ((got_v, want_v), (got_g, want_g)):
+        np.testing.assert_allclose(got, want, **GEN_TOL)
+
+
+@pytest.mark.parametrize("which", ["g", "d"])
+def test_gan_losses_match_jax_at_the_same_label(which):
+    """The label JAX draws from its key, given to the port as a value."""
+    rng = np.random.default_rng(7)
+    real, fake = rng.normal(size=(2, 6))
+    key = jax.random.PRNGKey(8)
+    label_key = key if which == "g" else jax.random.split(key)[0]
+    label = float(jax.random.uniform(label_key, (), minval=0.7, maxval=1.2))
+    if which == "g":
+        port_fn = lambda x: losses.gan_g_loss(x, label)
+        jax_fn = lambda x: jlosses.gan_g_loss(x, key)
+    else:
+        port_fn = lambda x: losses.gan_d_loss(torch.from_numpy(real), x, label)
+        jax_fn = lambda x: jlosses.gan_d_loss(jnp.asarray(real), x, key)
+    got_v, got_g, want_v, want_g = _value_and_grad(port_fn, jax_fn, fake)
+    np.testing.assert_allclose(got_v, want_v, **GEN_TOL)
+    np.testing.assert_allclose(got_g, want_g, **GEN_TOL)
+
+
+def test_smoothed_label_is_drawn_from_the_generator():
+    draws = [float(losses.smoothed_label(torch.Generator().manual_seed(seed)))
+             for seed in range(64)]
+    assert all(0.7 <= y < 1.2 for y in draws) and len(set(draws)) == 64
+    assert float(losses.smoothed_label(torch.Generator().manual_seed(3))) == draws[3]
+
+
+@pytest.mark.parametrize("with_target", [False, True])
+def test_kld_loss_matches_jax(with_target):
+    rng = np.random.default_rng(9)
+    inputs = np.concatenate([rng.normal(size=(5, 4)), 0.01 + rng.random((5, 4))], axis=-1)
+    targets = (np.concatenate([rng.normal(size=(5, 4)), rng.normal(scale=0.3, size=(5, 4))],
+                              axis=-1) if with_target else None)
+    got_v, got_g, want_v, want_g = _value_and_grad(
+        lambda x: losses.kld_loss(x, None if targets is None else torch.from_numpy(targets)),
+        lambda x: jlosses.kld_loss(x, None if targets is None else jnp.asarray(targets)),
+        inputs)
+    np.testing.assert_allclose(got_v, want_v, **GEN_TOL)
+    np.testing.assert_allclose(got_g, want_g, **GEN_TOL)

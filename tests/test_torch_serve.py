@@ -165,10 +165,12 @@ def test_load_predictor_refuses_what_is_not_ported(tmp_path):
     from trajnetplusplusbaselines_tpu.models.sgan import SGAN, SGANPredictor
     from trajnetplusplusbaselines_tpu.utils.checkpoint import save_predictor as jax_save
 
-    sgan = str(tmp_path / "sgan.pkl")
-    jax_save(SGANPredictor(SGAN(), {}), None, sgan)
-    with pytest.raises(NotImplementedError, match="SGAN"):
-        load_predictor(sgan)
+    bf16 = str(tmp_path / "bf16.pkl")
+    model = SGAN()
+    model.generator.compute_dtype = "bfloat16"  # a dtype the unpickler can restore
+    jax_save(SGANPredictor(model, {}), None, bf16)
+    with pytest.raises(NotImplementedError, match="compute dtype"):
+        load_predictor(bf16)
 
     foreign = str(tmp_path / "foreign.pkl")
     with open(foreign, "wb") as f:
@@ -176,6 +178,58 @@ def test_load_predictor_refuses_what_is_not_ported(tmp_path):
                      "model": types.SimpleNamespace(a=1), "params": {}}, f)
     with pytest.raises(pickle.UnpicklingError, match="unsupported class"):
         load_predictor(foreign)
+
+
+def test_load_jax_generative_pickles_without_jax(tmp_path, monkeypatch):
+    """A JAX ``SGANPredictor`` and ``VAEPredictor`` pickle load in a process
+    where jax cannot be imported, with their configuration and params, and
+    serve through ``sgan_cli`` and ``vae_cli``."""
+    import subprocess
+    import sys
+
+    from trajnetplusplusbaselines_torch.evaluator import sgan_cli, vae_cli
+    from trajnetplusplusbaselines_tpu.models.sgan import SGANPredictor as JSGANPredictor
+    from trajnetplusplusbaselines_tpu.models.vae import VAEPredictor as JVAEPredictor
+    from trajnetplusplusbaselines_tpu.utils.checkpoint import save_predictor as jax_save
+
+    from .torch_parity import jax_generative
+
+    make_synthetic_dataset(str(tmp_path / "DATA_BLOCK" / "synthset"), n_scenes=3)
+    monkeypatch.chdir(tmp_path)
+    jsgan, jsgan_params, _ = jax_generative("sgan", "nn_lstm", seed=1, noise_type="uniform")
+    jax_save(JSGANPredictor(jsgan, jsgan_params), None, "sgan.pkl")
+    jvae, jvae_params, _ = jax_generative("vae", seed=2, desire=False)
+    jax_save(JVAEPredictor(jvae, jvae_params), None, "vae.pkl")
+
+    code = (
+        "import sys, json\n"
+        "sys.modules['jax'] = None\n"
+        "from trajnetplusplusbaselines_torch.utils.checkpoint import load_predictor\n"
+        "s, v = load_predictor('sgan.pkl'), load_predictor('vae.pkl')\n"
+        "g = s.model.generator\n"
+        "print(json.dumps([type(s).__name__, type(v).__name__, s.model.k, g.noise_dim,\n"
+        "                  g.noise_type, type(s.model.discriminator.pool).__name__,\n"
+        "                  v.model.num_modes, v.model.latent_dim, v.model.desire,\n"
+        "                  float(s.params['discriminator']['real_classifier'][2]['w'].sum()),\n"
+        "                  float(v.params['vae_decoder']['w'].sum())]))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout)
+    assert got[:9] == ["SGANPredictor", "VAEPredictor", 3, 4, "uniform", "NearestNeighborLSTM",
+                       3, 8, False]
+    np.testing.assert_allclose(
+        got[9:], [float(np.sum(jsgan_params["discriminator"]["real_classifier"][2]["w"])),
+                  float(np.sum(jvae_params["vae_decoder"]["w"]))], rtol=1e-12)
+
+    for name, cli in (("sgan", sgan_cli), ("vae", vae_cli)):
+        table = cli.main(["--path", "synthset", "--output", f"{name}.pkl", "--modes", "2",
+                          "--device", "cpu"])
+        assert table.results[f"{name}_modes2"][32] == 3  # every scene scored
+        assert np.isfinite(table.results[f"{name}_modes2"][33:35]).all()
 
 
 def test_batched_predictor_moves_params_once():

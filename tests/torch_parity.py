@@ -127,20 +127,29 @@ def port_pool(jax_pool):
     """The port's counterpart of a JAX pool configuration (any of the
     eleven types' pool classes), built from its attributes."""
     from trajnetplusplusbaselines_torch.ops import pooling
-    from trajnetplusplusbaselines_torch.utils.checkpoint import pool_from_attributes
+    from trajnetplusplusbaselines_torch.utils.checkpoint import from_attributes
 
     if jax_pool is None:
         return None
-    return pool_from_attributes(getattr(pooling, type(jax_pool).__name__), vars(jax_pool))
+    return from_attributes(getattr(pooling, type(jax_pool).__name__), vars(jax_pool))
 
 
 def port_model(jax_model):
-    """The port's counterpart of a JAX LSTM configuration."""
-    from trajnetplusplusbaselines_torch.models.lstm import LSTM
+    """The port's counterpart of a JAX model configuration: an LSTM, an
+    SGAN (with its generator and discriminator), or a VAE."""
+    from trajnetplusplusbaselines_torch.models import lstm, sgan, vae
+    from trajnetplusplusbaselines_torch.utils.checkpoint import from_attributes
 
-    return LSTM(embedding_dim=jax_model.embedding_dim, hidden_dim=jax_model.hidden_dim,
-                pool=port_pool(jax_model.pool), pool_to_input=jax_model.pool_to_input,
-                goal_dim=jax_model.goal_dim, goal_flag=jax_model.goal_flag)
+    port_class = {"LSTM": lstm.LSTM, "LSTMGenerator": sgan.LSTMGenerator,
+                  "LSTMDiscriminator": sgan.LSTMDiscriminator, "SGAN": sgan.SGAN,
+                  "VAE": vae.VAE}[type(jax_model).__name__]
+    attrs = dict(vars(jax_model))
+    if "pool" in attrs:
+        attrs["pool"] = port_pool(attrs["pool"])
+    for key in ("generator", "discriminator"):
+        if key in attrs:
+            attrs[key] = port_model(attrs[key])
+    return from_attributes(port_class, attrs)
 
 
 # tiny trainer arguments for every pool type: pool_dim a multiple of neigh
@@ -210,3 +219,85 @@ def pool_batch(s=4, a=5, t=21, seed=0):
     goals = np.where(slot_mask[..., None], rng.normal(scale=2.0, size=(s, a, 2)), 0.0)
     goals[0, 0] = xy[8, 0, 0]
     return xy, mask, goals, slot_mask
+
+
+# the generative models' tiny widths beside TINY_POOL_ARGS
+TINY_NOISE_DIM, TINY_LATENT = 4, 8
+
+
+def jax_generative(kind, pool_type="directional", seed=0, k=3, dtype=np.float64, **model_args):
+    """A tiny JAX SGAN (``kind="sgan"``: generator and discriminator with a
+    pool each, noise 4) or VAE (latent 8) at embedding 8, hidden 16, pool 16,
+    grid n 4, its params in ``dtype``, and the same params as torch
+    tensors."""
+    import types
+
+    import jax
+    import jax.numpy as jnp
+
+    from trajnetplusplusbaselines_tpu.models.sgan import SGAN, LSTMDiscriminator, LSTMGenerator
+    from trajnetplusplusbaselines_tpu.models.vae import VAE
+    from trajnetplusplusbaselines_tpu.ops.pooling import make_pool
+
+    def pool():
+        return make_pool(pool_type, types.SimpleNamespace(**TINY_POOL_ARGS))
+
+    widths = dict(embedding_dim=8, hidden_dim=16)
+    if kind == "sgan":
+        model = SGAN(LSTMGenerator(pool=pool(), noise_dim=TINY_NOISE_DIM, **widths, **model_args),
+                     LSTMDiscriminator(pool=pool(), **widths), k=k)
+    else:
+        model = VAE(pool=pool(), num_modes=k, latent_dim=TINY_LATENT, **widths, **model_args)
+    params = jax.tree.map(lambda x: jnp.asarray(x, dtype),
+                          model.init_params(jax.random.PRNGKey(seed)))
+    return model, params, params_from_jax(jax.tree.map(np.asarray, params))
+
+
+def key_chain(key, n):
+    """The ``n`` subkeys of ``key, sub = jax.random.split(key)`` repeated, as
+    the JAX SGAN and VAE draw one per mode."""
+    import jax
+
+    subs = []
+    for _ in range(n):
+        key, sub = jax.random.split(key)
+        subs.append(np.asarray(sub))
+    return subs
+
+
+class KeyedDraws:
+    """Pins the JAX package's random draws by key: the draw made with the
+    ``i``-th key of ``keys`` is ``values[i]`` (sliced to the shape asked
+    for).  It holds under ``jit`` and ``vmap``, where a draw runs once per
+    trace, since the value depends on the key and not on a call count."""
+
+    def __init__(self, keys, values):
+        self.keys = np.stack([np.asarray(k) for k in keys])
+        self.values = np.stack(values)
+
+    def __call__(self, key, shape):
+        import jax.numpy as jnp
+
+        index = jnp.argmax(jnp.all(jnp.asarray(key) == self.keys, axis=-1))
+        value = jnp.asarray(self.values)[index]
+        return value[tuple(slice(0, n) for n in shape)]
+
+    def pin_noise(self, monkeypatch):
+        """JAX ``models.sgan.get_noise`` draws these values."""
+        import trajnetplusplusbaselines_tpu.models.sgan as jsgan
+
+        monkeypatch.setattr(jsgan, "get_noise",
+                            lambda key, shape, noise_type, dtype=None: self(key, shape))
+
+    def pin_latent(self, monkeypatch, jax_model):
+        """JAX ``VAE.sample_latent`` of ``jax_model`` takes these values as
+        its standard-normal draw, its formulas otherwise unchanged."""
+        import jax.numpy as jnp
+
+        def sample_latent(key, z_mu, z_log_var, training):
+            eps = self(key, z_mu.shape)
+            if training:
+                return z_mu + jnp.exp(0.5 * z_log_var) * eps
+            return eps * jnp.exp(0.5 * z_log_var)
+
+        monkeypatch.setattr(jax_model, "sample_latent", sample_latent, raising=False)

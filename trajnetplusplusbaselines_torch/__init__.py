@@ -7,12 +7,13 @@ evaluator's writing and scoring) holds only numpy; the port keeps its own
 copy of what it uses of it.  Nothing in this package imports ``jax`` or the
 JAX package.
 
-Ported so far: the serving path of the D-LSTM (directional grid pooling,
-``LSTM`` autoregressive rollout, batched prediction, the TrajNet++ evaluator
-CLI), with the fused D-LSTM step as a hand-written CUDA kernel
-(``ops/cuda/fused_step.py``, ``csrc/fused_step.cu``), and its training path
-(teacher forcing, ``losses``, Adam, the ``trainers.lstm`` CLI), whose steps
-run the kernel's grid stage under autograd.
+Ported so far: the serving and training paths of the LSTM family with every
+interaction pool (``models/lstm.py``, ``ops/pooling``, batched prediction,
+the TrajNet++ evaluator CLIs, ``losses``, Adam, the ``trainers.lstm`` CLI),
+of the SGAN and of the VAE (``models/sgan.py``, ``models/vae.py``,
+``trainers.sgan``, ``trainers.vae``), with the fused D-LSTM step and its
+grid stage as hand-written CUDA kernels (``ops/cuda/fused_step.py``,
+``csrc/``).
 """
 
 __version__ = "0.1.0"

@@ -1,4 +1,4 @@
-"""CLI: evaluate trained LSTM models with the port.
+"""CLI: evaluate trained LSTM, SGAN and VAE models with the port.
 
 Port of ``trajnetplusplusbaselines_tpu/evaluator/lstm_cli.py`` with the same
 flags, less ``--cpu``, plus ``--device`` (default ``cuda``).  Predictor

@@ -1,0 +1,16 @@
+"""CLI: evaluate trained VAE models with the port.
+
+Port of ``trajnetplusplusbaselines_tpu/evaluator/vae_cli.py``: the model is
+told apart when its pickle loads, so this is the shared driver of
+``lstm_cli``, with its flags (``--modes``, ``--device``, default ``cuda``),
+kept for command-line parity.
+
+Usage:
+    python -m trajnetplusplusbaselines_torch.evaluator.vae_cli \
+        --path trajdata_split --output OUTPUT_BLOCK/trajdata_split/vae_directional.pkl --modes 3
+"""
+
+from .lstm_cli import main
+
+if __name__ == "__main__":
+    main()

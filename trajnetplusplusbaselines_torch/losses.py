@@ -1,7 +1,8 @@
 """Training losses on dense ``[time, scene, ...]`` batches.
 
 Port of ``trajnetplusplusbaselines_tpu/losses.py`` (``gaussian_2d``,
-``prediction_loss``, ``l2_loss``, ``collision_loss``).  The primary is agent
+``prediction_loss``, ``l2_loss``, ``collision_loss``, and the generative
+models' ``bce_loss``, ``gan_g_loss``, ``gan_d_loss``, ``kld_loss``).  The primary is agent
 0 of every scene, so callers slice ``[:, :, 0]``; every loss takes a
 ``scene_mask [S]`` so padded scenes contribute nothing, to the value or to
 the gradient.
@@ -13,6 +14,12 @@ Kept from the JAX code:
 - the L2 multiplier x100;
 - the collision hinge below ``col_distance`` with detached neighbours and a
   detached hinge mask.
+
+- the GAN's label smoothing: real labels y ~ U(0.7, 1.2), one draw per
+  loss, given as ``label`` or drawn from a ``torch.Generator`` (the JAX
+  package draws it from a key);
+- the KL divergence against the standard normal, or the stable two-term
+  form against a target distribution.
 
 One difference: at a pair distance of exactly zero the JAX collision loss
 has a NaN gradient (its norm's derivative is 0/0); the port's distance has
@@ -128,3 +135,55 @@ def collision_loss(
     colliding = ((d <= col_distance) & valid).detach()
     col_val = (1.0 - d / col_distance) * colliding
     return col_wt * torch.sum(col_val)
+
+
+def bce_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Numerically stable sigmoid BCE, mean-reduced."""
+    neg_abs = -torch.abs(logits)
+    loss = torch.clamp(logits, min=0) - logits * targets + torch.log1p(torch.exp(neg_abs))
+    return torch.mean(loss)
+
+
+def smoothed_label(generator: Optional[torch.Generator] = None, device=None,
+                   dtype=torch.float32) -> torch.Tensor:
+    """One real label y ~ U(0.7, 1.2), drawn from ``generator`` on its device
+    and moved to ``device``."""
+    gen_device = generator.device if generator is not None else None
+    y = torch.rand((), generator=generator, device=gen_device, dtype=dtype)
+    return (0.7 + 0.5 * y).to(device)
+
+
+def gan_g_loss(scores_fake: torch.Tensor, label=None, *,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Generator loss: the fake scores against the smoothed real label
+    ``label``, or one drawn from ``generator`` (``smoothed_label``)."""
+    if label is None:
+        label = smoothed_label(generator, scores_fake.device, scores_fake.dtype)
+    return bce_loss(scores_fake, torch.ones_like(scores_fake) * label)
+
+
+def gan_d_loss(scores_real: torch.Tensor, scores_fake: torch.Tensor, label=None, *,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Discriminator loss: real scores against the smoothed real label
+    (``label`` or drawn from ``generator``), fake scores against zero."""
+    if label is None:
+        label = smoothed_label(generator, scores_real.device, scores_real.dtype)
+    return (bce_loss(scores_real, torch.ones_like(scores_real) * label)
+            + bce_loss(scores_fake, torch.zeros_like(scores_fake)))
+
+
+def kld_loss(inputs: torch.Tensor, targets: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """KL divergence of diagonal Gaussians given ``[S, 2 * latent]`` (mu ++
+    log variance); callers pass the primary rows only.  With no target, the
+    prior is the standard normal; otherwise the stable two-term form of the
+    reference VAE's loss."""
+    half = inputs.shape[-1] // 2
+    z_mu, z_log_var = inputs[..., :half], inputs[..., half:]
+    if targets is None:
+        latent = -0.5 * torch.sum(1.0 + z_log_var - z_mu ** 2 - torch.exp(z_log_var), dim=-1)
+    else:
+        t_mu, t_log_var = targets[..., :half], targets[..., half:]
+        z_var, t_var = torch.exp(z_log_var), torch.exp(t_log_var)
+        latent = 0.5 * (torch.sum(z_var / t_var, dim=-1)
+                        + torch.sum((t_mu - z_mu) ** 2 / t_var, dim=-1))
+    return torch.mean(latent)

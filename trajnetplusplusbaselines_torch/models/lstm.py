@@ -13,6 +13,10 @@ slot_mask [S, A] bool (the slot is a real track); outputs (rel_pred
 prediction window.  A rollout of 9 observed and 12 predicted frames is 19
 serial steps: 8 encoder transitions and 11 decoder steps.  A stateful pool's
 state rides in the step's carry through the encoder and the decoder.
+``start_decoder`` makes what the decoder starts from; the generative models
+(``models/sgan.py``, ``models/vae.py``) change its hidden state and repeat
+it along the scene axis to decode k modes as one batch
+(``DecoderStart.repeat``).
 
 Where a step runs is ``LSTM.route``, decided from the configuration (and
 from whether autograd records) once per rollout, before any launch:
@@ -30,8 +34,10 @@ from whether autograd records) once per rollout, before any launch:
   embedding and ``lstm_step_plain`` run in PyTorch under autograd.  Serving
   and training alike.
 - ``"plain"``: everything else (vanilla, occupancy, social, dir_social,
-  the non-grid pools, a directional grid too large for the grid stage):
-  the pool and ``lstm_step_plain`` in PyTorch on either device.
+  the non-grid pools, a directional grid too large for the grid stage, a
+  directional grid whose positions carry a gradient, as an SGAN
+  discriminator's are when it scores the generator's rollout in a generator
+  step): the pool and ``lstm_step_plain`` in PyTorch on either device.
 
 This is routing by configuration, not a fallback: on the card a kernel that
 fails to build or launch raises.  On the CPU the wrappers run their plain
@@ -124,14 +130,16 @@ class LSTM:
         return (isinstance(pool, GridBasedPooling) and pool.type_ == "directional"
                 and pool.n * pool.pool_size <= GRID_MAX_N)
 
-    def route(self, records: bool) -> str:
+    def route(self, records: bool, positions_record: bool = False) -> str:
         """The routing predicate: ``"fused"`` where the fused step computes
         the step and autograd does not record (``records``), else ``"grid"``
-        where the grid stage makes the grid, else ``"plain"`` (the module's
-        docstring gives each route)."""
+        where the grid stage makes the grid and the positions carry no
+        gradient (``positions_record``: a discriminator scoring a generator's
+        rollout), else ``"plain"`` (the module's docstring gives each
+        route)."""
         if self.fused and not records:
             return "fused"
-        return "grid" if self.grid_stage else "plain"
+        return "grid" if self.grid_stage and not positions_record else "plain"
 
     @staticmethod
     def step_weights(params: Dict, cell: str, route: str):
@@ -269,6 +277,83 @@ class LSTM:
         return carry, normals, masks, positions
 
     # --------------------------------------------------------------- forward
+    def inputs(self, params: Dict, observed, observed_mask, prediction_truth=None,
+               prediction_truth_mask=None, n_predict: Optional[int] = None, *, goals=None,
+               slot_mask=None) -> "Inputs":
+        """A rollout's inputs on the device and in the dtype of ``params``,
+        contiguous (``place_inputs``).  Raises unless it has the truth and its
+        mask (teacher forcing) or ``n_predict`` >= 1."""
+        teacher = prediction_truth is not None
+        if teacher == (n_predict is not None) or teacher != (prediction_truth_mask is not None):
+            raise ValueError("forward needs prediction_truth and its mask, or n_predict")
+        if not teacher and n_predict < 1:
+            raise ValueError("forward needs n_predict >= 1")
+        return self.place_inputs(params, observed, observed_mask, prediction_truth,
+                                 prediction_truth_mask, n_predict, goals=goals,
+                                 slot_mask=slot_mask)
+
+    def place_inputs(self, params: Dict, observed, observed_mask, prediction_truth=None,
+                     prediction_truth_mask=None, n_predict: Optional[int] = None, *,
+                     goals=None, slot_mask=None) -> "Inputs":
+        """``Inputs`` on the device and in the dtype of ``params``,
+        contiguous.  Raises without goals for a goal model or without the
+        slot mask for a pool that reads it."""
+        if self.goal_flag and goals is None:
+            raise ValueError("a goal-conditioned model needs goals")
+        if getattr(self.pool, "reads_slot_mask", False) and slot_mask is None:
+            raise ValueError(f"{type(self.pool).__name__} reads the slot mask: pass slot_mask")
+        ref = params["encoder"]["w_ih"]
+
+        def place(x, dtype):
+            if x is None:
+                return None
+            return torch.as_tensor(x).to(device=ref.device, dtype=dtype).contiguous()
+
+        return Inputs(place(observed, ref.dtype), place(observed_mask, torch.bool),
+                      place(prediction_truth, ref.dtype), place(prediction_truth_mask, torch.bool),
+                      n_predict, place(goals, ref.dtype), place(slot_mask, torch.bool))
+
+    def plan(self, params: Dict, cells, *positions) -> tuple:
+        """(route, {cell: step weights}) of one rollout, decided before any
+        launch (``route``) from the params and, where they carry a gradient,
+        the ``positions`` the rollout reads."""
+        records = autograd_records(*_leaves(params), *positions)
+        route = self.route(records, positions_record=autograd_records(*positions))
+        return route, {cell: self.step_weights(params, cell, route) for cell in cells}
+
+    def start_decoder(self, carry: StepCarry, x: "Inputs", enc_positions, enc_masks
+                      ) -> "DecoderStart":
+        """Where the decoder starts after the encoder ran over ``x.observed``:
+        every neighbour from the last observed frame, the primary from the
+        model's own positions[-2] (with a 2-frame observation the observation
+        stands in for it), all from positions[-1]; with truth, the
+        teacher-forcing chain ``observed[-1] ++ truth``, else ``n_predict - 1``
+        free steps."""
+        observed, observed_mask = x.observed, x.observed_mask
+        if observed.shape[0] == 2:
+            prim_a, prim_valid_a = observed[-1][:, 0], observed_mask[-1][:, 0]
+        else:
+            prim_a, prim_valid_a = enc_positions[-2][:, 0], enc_masks[-2][:, 0]
+        pos_a = observed[-1].clone()
+        pos_a[:, 0] = prim_a
+        valid_a = observed_mask[-1].clone()
+        valid_a[:, 0] = prim_valid_a
+
+        truth = truth_mask = None
+        n_steps = (x.n_predict or 0) - 1
+        if x.truth is not None:
+            truth = torch.cat([observed[-1:], x.truth])
+            truth_mask = torch.cat([observed_mask[-1:], x.truth_mask])
+            n_steps = truth.shape[0] - 1
+        return DecoderStart(carry, pos_a, valid_a, enc_positions[-1], enc_masks[-1], n_steps,
+                            truth, truth_mask, x.goals, x.slot_mask)
+
+    def decode_from(self, params, start: "DecoderStart", weights, route: str):
+        """``decode`` from ``start``; returns (carry, normals, masks, positions)."""
+        return self.decode(params, start.carry, start.pos_a, start.valid_a, start.pos_b,
+                           start.valid_b, start.n_steps, weights, start.truth, start.truth_mask,
+                           goals=start.goals, slot_mask=start.slot_mask, route=route)
+
     def forward(self, params: Dict, observed, observed_mask, prediction_truth=None,
                 prediction_truth_mask=None, n_predict: Optional[int] = None, *,
                 goals=None, slot_mask=None):
@@ -283,61 +368,85 @@ class LSTM:
 
         Returns (rel_pred [T', S, A, 5], pred [T', S, A, 2], valid [T', S, A]).
         """
-        teacher = prediction_truth is not None
-        if teacher == (n_predict is not None) or teacher != (prediction_truth_mask is not None):
-            raise ValueError("forward needs prediction_truth and its mask, or n_predict")
-        if not teacher and n_predict < 1:
-            raise ValueError("forward needs n_predict >= 1")
-        if self.goal_flag and goals is None:
-            raise ValueError("a goal-conditioned model needs goals")
-        if getattr(self.pool, "reads_slot_mask", False) and slot_mask is None:
-            raise ValueError(f"{type(self.pool).__name__} reads the slot mask: pass slot_mask")
-        ref = params["encoder"]["w_ih"]
-
-        def place(x, dtype):
-            return torch.as_tensor(x).to(device=ref.device, dtype=dtype).contiguous()
-
-        observed = place(observed, ref.dtype)
-        observed_mask = place(observed_mask, torch.bool)
-        goals = place(goals, ref.dtype) if goals is not None else None
-        slot_mask = place(slot_mask, torch.bool) if slot_mask is not None else None
-        s, a = observed.shape[1], observed.shape[2]
-        carry = self.init_carry(s, a, device=ref.device, dtype=ref.dtype)
-        route = self.route(autograd_records(*_leaves(params)))
-        weights = {cell: self.step_weights(params, cell, route)
-                   for cell in ("encoder", "decoder")}
-        kw = dict(goals=goals, slot_mask=slot_mask, route=route)
-
+        x = self.inputs(params, observed, observed_mask, prediction_truth, prediction_truth_mask,
+                        n_predict, goals=goals, slot_mask=slot_mask)
+        route, weights = self.plan(params, ("encoder", "decoder"))
         carry, enc_normals, enc_masks, enc_positions = self.encode(
-            params, carry, observed, observed_mask, weights["encoder"], **kw
+            params, self.init_carry(*x.observed.shape[1:3], device=x.observed.device,
+                                    dtype=x.observed.dtype),
+            x.observed, x.observed_mask, weights["encoder"], goals=x.goals,
+            slot_mask=x.slot_mask, route=route,
         )
-
-        # the decoder starts from the last observed frame for every
-        # neighbour; only the primary reads the model's own positions[-2]
-        # (with a 2-frame observation the observation stands in for it), in
-        # both teacher-forced and autoregressive modes
-        if observed.shape[0] == 2:
-            prim_a, prim_valid_a = observed[-1][:, 0], observed_mask[-1][:, 0]
-        else:
-            prim_a, prim_valid_a = enc_positions[-2][:, 0], enc_masks[-2][:, 0]
-        pos_a = observed[-1].clone()
-        pos_a[:, 0] = prim_a
-        valid_a = observed_mask[-1].clone()
-        valid_a[:, 0] = prim_valid_a
-
-        truth = truth_mask = None
-        if teacher:
-            truth = torch.cat([observed[-1:], place(prediction_truth, ref.dtype)])
-            truth_mask = torch.cat([observed_mask[-1:], place(prediction_truth_mask, torch.bool)])
-            n_predict = truth.shape[0]
-        carry, dec_normals, dec_masks, dec_positions = self.decode(
-            params, carry, pos_a, valid_a, enc_positions[-1], enc_masks[-1],
-            n_predict - 1, weights["decoder"], truth, truth_mask, **kw,
-        )
+        start = self.start_decoder(carry, x, enc_positions, enc_masks)
+        _, dec_normals, dec_masks, dec_positions = self.decode_from(params, start,
+                                                                    weights["decoder"], route)
         rel_pred = torch.stack(enc_normals + dec_normals)
         pred = torch.stack(enc_positions + dec_positions)
         valid = torch.stack(enc_masks + dec_masks)
         return rel_pred, pred, valid
+
+
+class Inputs(NamedTuple):
+    """A rollout's inputs as ``LSTM.inputs`` places them."""
+
+    observed: torch.Tensor  # [T, S, A, 2]
+    observed_mask: torch.Tensor  # [T, S, A] bool
+    truth: Optional[torch.Tensor]  # [T', S, A, 2] teacher forcing, else None
+    truth_mask: Optional[torch.Tensor]
+    n_predict: Optional[int]  # free rollout, else None
+    goals: Optional[torch.Tensor]  # [S, A, 2]
+    slot_mask: Optional[torch.Tensor]  # [S, A] bool
+
+
+class DecoderStart(NamedTuple):
+    """What ``LSTM.decode`` starts from, as ``LSTM.start_decoder`` makes it."""
+
+    carry: StepCarry
+    pos_a: torch.Tensor  # [S, A, 2]: positions at the decoder's first t-1
+    valid_a: torch.Tensor
+    pos_b: torch.Tensor  # [S, A, 2]: positions at its first t
+    valid_b: torch.Tensor
+    n_steps: int
+    truth: Optional[torch.Tensor]  # [n_steps + 1, S, A, 2] teacher-forcing chain, else None
+    truth_mask: Optional[torch.Tensor]
+    goals: Optional[torch.Tensor]
+    slot_mask: Optional[torch.Tensor]
+
+    def repeat(self, modes: int) -> "DecoderStart":
+        """Every field, the carry and a stateful pool's state included,
+        repeated ``modes`` times along the scene axis, mode-major: the modes
+        decode as one batch of ``modes * S`` scenes, mode m in rows
+        ``m * S .. (m + 1) * S - 1``."""
+        if modes == 1:
+            return self
+
+        def rep(x, dim=0):
+            if x is None:
+                return None
+            if isinstance(x, tuple):
+                return tuple(rep(v, dim) for v in x)
+            return torch.cat([x] * modes, dim=dim)
+
+        carry = StepCarry(rep(self.carry.h), rep(self.carry.c), rep(self.carry.pool_state))
+        return DecoderStart(carry, rep(self.pos_a), rep(self.valid_a), rep(self.pos_b),
+                            rep(self.valid_b), self.n_steps, rep(self.truth, 1),
+                            rep(self.truth_mask, 1), rep(self.goals), rep(self.slot_mask))
+
+    def with_hidden(self, h: torch.Tensor) -> "DecoderStart":
+        return self._replace(carry=self.carry._replace(h=h))
+
+
+def join_modes(enc: List[torch.Tensor], dec: List[torch.Tensor], modes: int) -> torch.Tensor:
+    """``[modes, T_enc + T_dec, S, ...]`` from the encoder's per-step tensors
+    ``[S, ...]``, which the modes share, and the decoder's ``[modes * S, ...]``
+    (``DecoderStart.repeat``)."""
+    enc = torch.stack(enc)
+    enc = enc[None].expand(modes, *enc.shape)
+    if not dec:
+        return enc
+    dec = torch.stack(dec)
+    dec = dec.reshape(dec.shape[0], modes, enc.shape[2], *dec.shape[2:]).movedim(1, 0)
+    return torch.cat([enc, dec], dim=1)
 
 
 def _set_primary(gt_xy, gt_mask, own_xy, own_mask):
@@ -348,6 +457,40 @@ def _set_primary(gt_xy, gt_mask, own_xy, own_mask):
     mask = gt_mask.clone()
     mask[:, 0] = own_mask[:, 0]
     return xy, mask
+
+
+def scene_batch(paths, scene_goal, obs_length: int, start_length: int, args, goal_flag: bool):
+    """One scene of paths as a batch of one for ``forward``: (observed [T, 1,
+    A, 2], mask, goals [1, A, 2] (zeros unless ``goal_flag``), slot_mask [1,
+    A]) as numpy, and ``finish(pred [..., T', 1, A, 2], valid)``, which gives
+    the scene's tracks ``[..., T', n, 2]``, NaN where invalid, moved back
+    where ``args.normalize_scene`` centred the scene (with its goals)."""
+    xy = Reader.paths_to_xy(paths)
+    scene_goal = np.asarray(scene_goal, dtype=np.float32) if goal_flag else None
+    normalize = bool(getattr(args, "normalize_scene", False)) if args is not None else False
+    if normalize:
+        xy, rotation, center, *goal = augmentation.center_scene(xy, obs_length, goals=scene_goal)
+        scene_goal = goal[0] if goal_flag else None
+    n_agents = xy.shape[1]
+    packed = batching.pack_scenes([xy[start_length:obs_length]])
+    goals = np.zeros((1, packed.max_agents, 2), dtype=np.float32)
+    if goal_flag:
+        goals[0, : scene_goal.shape[0]] = scene_goal[: packed.max_agents]
+    slot_mask = np.arange(packed.max_agents)[None, :] < packed.num_agents[:, None]
+
+    def finish(pred, valid):
+        out = batching.mask_to_nan(pred, valid)[..., 0, :n_agents, :]
+        return augmentation.inverse_scene(out, rotation, center) if normalize else out
+
+    return (packed.xy, packed.mask, goals, slot_mask), finish
+
+
+def mode_outputs(out: np.ndarray, n_predict: int) -> Dict:
+    """``{mode: [primary, neighbours]}`` of one scene's generative modes
+    ``[K, T', n, 2]``: mode 0 keeps the neighbours, later modes the primary
+    only."""
+    return {m: [o[-n_predict:, 0], o[-n_predict:, 1:] if m == 0 else []]
+            for m, o in enumerate(out)}
 
 
 class LSTMPredictor:
@@ -372,29 +515,14 @@ class LSTMPredictor:
         start_length: int = 0,
         args=None,
     ):
-        xy = Reader.paths_to_xy(paths)
-        goal_flag = self.model.goal_flag
-        scene_goal = np.asarray(scene_goal, dtype=np.float32) if goal_flag else None
-        normalize = bool(getattr(args, "normalize_scene", False)) if args is not None else False
-        if normalize:
-            xy, rotation, center, *goal = augmentation.center_scene(xy, obs_length,
-                                                                    goals=scene_goal)
-            scene_goal = goal[0] if goal_flag else None
-
-        packed = batching.pack_scenes([xy[start_length:obs_length]])
-        goals = np.zeros((1, packed.max_agents, 2), dtype=np.float32)
-        if goal_flag:
-            goals[0, : scene_goal.shape[0]] = scene_goal[: packed.max_agents]
-        slot_mask = np.arange(packed.max_agents)[None, :] < packed.num_agents[:, None]
+        (xy, mask, goals, slot_mask), finish = scene_batch(
+            paths, scene_goal, obs_length, start_length, args, self.model.goal_flag)
         with torch.no_grad():
             _, pred, valid = self.model.forward(
-                self.params, torch.from_numpy(packed.xy), torch.from_numpy(packed.mask),
+                self.params, torch.from_numpy(xy), torch.from_numpy(mask),
                 n_predict=n_predict, goals=torch.from_numpy(goals),
                 slot_mask=torch.from_numpy(slot_mask),
             )
-        output = batching.mask_to_nan(pred.cpu().numpy(), valid.cpu().numpy())
-        output = output[:, 0, : xy.shape[1]]  # [T', A, 2]
-        if normalize:
-            output = augmentation.inverse_scene(output, rotation, center)
+        output = finish(pred.cpu().numpy(), valid.cpu().numpy())  # [T', n, 2]
         return {mode: [output[-n_predict:, 0], output[-n_predict:, 1:]]
                 for mode in range(modes)}

@@ -13,6 +13,8 @@ Port of the host parts of ``trajnetplusplusbaselines_tpu/trainers/common.py``
   Python loop, with rotation (of the scenes and their goals) and
   neighbour-noise augmentation drawn on the device from a
   ``torch.Generator``, yielding each batch's goals and slot mask;
+- ``EpochLoop``: what every trainer's epochs share (resident datasets,
+  their batches, the epoch loop with checkpoints, the train log records);
 - ``make_optimizer`` / ``clip_by_global_norm`` / ``set_lr``: optax's
   ``clip_by_global_norm -> add_decayed_weights -> scale_by_adam ->
   scale_by_learning_rate`` as a global-norm clip written to optax's formula
@@ -27,6 +29,7 @@ import json
 import logging
 import socket
 import sys
+import time
 from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -160,6 +163,62 @@ def bucket_batches(data: Dict[str, torch.Tensor], idx: np.ndarray, valid: np.nda
                     slot_all[i] & v[:, None])
 
 
+class EpochLoop:
+    """What the trainers' epochs share: each dataset made resident on the
+    trainer's ``device`` once, its batches (augmented from ``generator``),
+    the epoch loop with its checkpoints, and the train log records.  A
+    trainer sets ``device``, ``generator``, ``batch_size``, ``obs_length``,
+    ``save_every``, ``val_flag``, ``log`` and ``_resident = {}``, and has
+    ``train``, ``val`` and ``save_checkpoint``."""
+
+    def _get_resident(self, scenes):
+        # keyed by id, with a strong reference so a freed object's reused
+        # address never aliases a stale entry
+        if id(scenes) not in self._resident:
+            self._resident[id(scenes)] = (scenes, ResidentDataset(scenes, self.device))
+        return self._resident[id(scenes)][1]
+
+    def _batches(self, resident, plan, augment=False, augment_noise=False):
+        for key, (idx, valid) in plan.items():
+            yield from bucket_batches(resident.buckets[key], idx, valid, augment=augment,
+                                      augment_noise=augment_noise,
+                                      obs_length=self.obs_length, generator=self.generator)
+
+    def loop(self, train_scenes: SceneDataset, val_scenes, out: str, epochs=25,
+             start_epoch=0):
+        for epoch in range(start_epoch, epochs):
+            if epoch % self.save_every == 0:
+                self.save_checkpoint(epoch, out + f".epoch{epoch}")
+            self.train(train_scenes, epoch)
+            if self.val_flag and val_scenes is not None:
+                self.val(val_scenes, epoch)
+        self.save_checkpoint(epochs, out + f".epoch{epochs}")
+        self.save_checkpoint(epochs, out)
+
+    def log_train(self, scenes: SceneDataset, epoch: int, losses: np.ndarray,
+                  start_time: float, lr: float, **per_batch) -> None:
+        """The epoch's "train" records, one per 10 batches, and its
+        "train-epoch" record; ``per_batch`` fields go into each "train"."""
+        n_batches = len(losses)
+        per_batch_time = (time.time() - start_time) / max(n_batches, 1)
+        for b in range(10, n_batches + 1, 10):
+            self.log.info({
+                "type": "train",
+                "epoch": epoch, "batch": b * self.batch_size,
+                "n_batches": len(scenes),
+                "time": round(per_batch_time, 4),
+                **per_batch,
+                "lr": lr,
+                "loss": round(float(losses[b - 1]), 3),
+            })
+        self.log.info({
+            "type": "train-epoch",
+            "epoch": epoch + 1,
+            "loss": round(float(losses.sum()) / max(len(scenes), 1), 5),
+            "time": round(time.time() - start_time, 1),
+        })
+
+
 # ------------------------------------------------------------------ optimizer
 def param_items(tree, prefix: Tuple = ()) -> List[Tuple[str, torch.Tensor]]:
     """(path, leaf) of a nested params dict, in a fixed order; paths join
@@ -189,6 +248,17 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> List[
     norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
     keep = norm < max_norm
     return [torch.where(keep, g, (g / norm) * max_norm) for g in grads]
+
+
+def optimizer_step(optimizer: torch.optim.Optimizer, leaves: Sequence[torch.Tensor],
+                   grads: Sequence[torch.Tensor], clip_grad: Optional[float] = None) -> None:
+    """One step of ``optimizer`` on ``leaves`` with ``grads``, clipped by
+    their global norm first where ``clip_grad`` is set."""
+    if clip_grad:
+        grads = clip_by_global_norm(grads, clip_grad)
+    for leaf, grad in zip(leaves, grads):
+        leaf.grad = grad
+    optimizer.step()
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:

@@ -50,14 +50,13 @@ from ..ops.pooling import POOL_TYPES, make_pool
 from ..utils import checkpoint as ckpt
 from ..utils.convert import params_from_jax, params_to_numpy
 from .common import (
-    ResidentDataset,
+    EpochLoop,
     SceneDataset,
     adam_state_from_numpy,
     adam_state_to_numpy,
-    bucket_batches,
-    clip_by_global_norm,
     log_process_record,
     make_optimizer,
+    optimizer_step,
     param_items,
     set_lr,
     setup_logging,
@@ -65,9 +64,11 @@ from .common import (
 )
 
 
-class Trainer:
+class Trainer(EpochLoop):
     """Trains an ``LSTM`` whose params (a nested dict of tensors in the JAX
     layout) live on one device; the leaves are trained in place."""
+
+    predictor_class = LSTMPredictor  # what ``save_checkpoint`` pickles
 
     def __init__(self, model, params, lr_schedule, criterion="pred", batch_size=8,
                  obs_length=9, pred_length=12, augment=True, save_every=1, start_length=0,
@@ -145,38 +146,10 @@ class Trainer:
         """One optimizer step on one batch (a ``common.Batch``'s fields);
         returns the loss, on the device."""
         loss, grads = self.loss_and_grads(xy, mask, scene_mask, goals, slot_mask)
-        if self.clip_grad:
-            grads = clip_by_global_norm(grads, self.clip_grad)
-        for leaf, grad in zip(self.leaves, grads):
-            leaf.grad = grad
-        self.optimizer.step()
+        optimizer_step(self.optimizer, self.leaves, grads, self.clip_grad)
         return loss
 
     # ----------------------------------------------------------------- loops
-    def _get_resident(self, scenes):
-        # keyed by id, with a strong reference so a freed object's reused
-        # address never aliases a stale entry
-        if id(scenes) not in self._resident:
-            self._resident[id(scenes)] = (scenes, ResidentDataset(scenes, self.device))
-        return self._resident[id(scenes)][1]
-
-    def _batches(self, resident, plan, augment=False, augment_noise=False):
-        for key, (idx, valid) in plan.items():
-            yield from bucket_batches(resident.buckets[key], idx, valid, augment=augment,
-                                      augment_noise=augment_noise,
-                                      obs_length=self.obs_length, generator=self.generator)
-
-    def loop(self, train_scenes: SceneDataset, val_scenes, out: str, epochs=25,
-             start_epoch=0):
-        for epoch in range(start_epoch, epochs):
-            if epoch % self.save_every == 0:
-                self.save_checkpoint(epoch, out + f".epoch{epoch}")
-            self.train(train_scenes, epoch)
-            if self.val_flag and val_scenes is not None:
-                self.val(val_scenes, epoch)
-        self.save_checkpoint(epochs, out + f".epoch{epochs}")
-        self.save_checkpoint(epochs, out)
-
     def save_checkpoint(self, epoch: int, filename: str):
         state = {
             "epoch": epoch,
@@ -184,7 +157,7 @@ class Trainer:
             "opt_state_hyper": {"learning_rate": float(self.lr_schedule(max(epoch - 1, 0)))},
             "opt_state": adam_state_to_numpy(self.optimizer, self.paths),
         }
-        ckpt.save_predictor(LSTMPredictor(self.model, self.params), filename, state)
+        ckpt.save_predictor(self.predictor_class(self.model, self.params), filename, state)
 
     def get_lr(self, epoch: int) -> float:
         return float(self.lr_schedule(epoch))
@@ -202,25 +175,8 @@ class Trainer:
         losses = [self.train_step(*batch) for batch in
                   self._batches(resident, plan, self.augment, self.augment_noise)]
         losses = torch.stack(losses).cpu().numpy() if losses else np.zeros(0)  # sync point
-        n_batches = len(losses)
-        per_batch = (time.time() - start_time) / max(n_batches, 1)
-
-        for b in range(10, n_batches + 1, 10):
-            self.log.info({
-                "type": "train",
-                "epoch": epoch, "batch": b * self.batch_size,
-                "n_batches": len(scenes),
-                "time": round(per_batch, 4),
-                "data_time": round(data_time / max(n_batches, 1), 6),
-                "lr": lr,
-                "loss": round(float(losses[b - 1]), 3),
-            })
-        self.log.info({
-            "type": "train-epoch",
-            "epoch": epoch + 1,
-            "loss": round(float(losses.sum()) / max(len(scenes), 1), 5),
-            "time": round(time.time() - start_time, 1),
-        })
+        self.log_train(scenes, epoch, losses, start_time, lr,
+                       data_time=round(data_time / max(len(losses), 1), 6))
 
     def val(self, scenes: SceneDataset, epoch: int):
         eval_start = time.time()
@@ -326,22 +282,24 @@ def refuse_unported(args) -> None:
             raise NotImplementedError(message)
 
 
-def main(epochs=25, argv=None):
-    """Train from the command line; returns the ``Trainer``."""
-    parser = argparse.ArgumentParser()
-    add_arguments(parser, epochs)
-    args = parser.parse_args(argv)
+def check_device(args) -> torch.device:
+    """Refuse what the port does not have (``refuse_unported``) and a CUDA
+    device where none is present, before anything runs."""
     refuse_unported(args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device} asked for, but CUDA is not available")
-    pool = make_pool(args.type, args)
+    return device
 
+
+def open_run(args, prefix: str) -> None:
+    """Seed the host's generators, name the output
+    (``OUTPUT_BLOCK/<path>/<prefix>_<type>_<o>.pkl``, in ``args.output``),
+    start the JSON log beside it and settle which state to load."""
     random.seed(args.seed)
     np.random.seed(args.seed)
 
     os.makedirs(f"OUTPUT_BLOCK/{args.path}", exist_ok=True)
-    prefix = "lstm_goals" if args.goals else "lstm"
     args.output = f"OUTPUT_BLOCK/{args.path}/{prefix}_{args.type}_{args.output}.pkl"
 
     setup_logging(args.output, append=bool(args.load_full_state))
@@ -354,27 +312,61 @@ def main(epochs=25, argv=None):
     if args.load_full_state:
         args.load_state = args.load_full_state
 
+
+def read_splits(args):
+    """(train scenes, val scenes or None, val_flag) of ``--path``'s train and
+    val splits, with goals under ``--goals``."""
     data_path = os.path.join(args.data_root, args.path)
     train_scenes, train_goals, _ = prepare_data(data_path, subset="/train/",
                                                 sample=args.sample, goals=args.goals)
     val_scenes, val_goals, val_flag = prepare_data(data_path, subset="/val/",
                                                    sample=args.sample, goals=args.goals)
+    train_ds = SceneDataset(train_scenes, args.obs_length, args.normalize_scene, train_goals)
+    val_ds = (SceneDataset(val_scenes, args.obs_length, args.normalize_scene, val_goals)
+              if val_scenes is not None else None)
+    return train_ds, val_ds, val_flag
+
+
+def load_params(args, params, device):
+    """``params``, or the weights of ``--load-state`` (strict) or
+    ``--nonstrict-load-state`` (the leaves whose path and shape match)."""
+    if not args.load_state:
+        return params, None
+    print("Loading Model Dict")
+    state = ckpt.load_state(args.load_state)
+    if args.load_state_strict:
+        return params_from_jax(state["params"], device=device), state
+    params, skipped = ckpt.merge_params_nonstrict(params, state["params"])
+    if skipped:
+        print("nonstrict load skipped:", skipped)
+    return params, state
+
+
+def restore_optimizer(optimizer, paths, opt_state) -> None:
+    """``--load-full-state``: Adam's moments from a port sidecar; a JAX
+    sidecar's optax state raises."""
+    print("Loading Optimizer Dict")
+    if not ckpt.is_port_opt_state(opt_state):
+        raise NotImplementedError(
+            "--load-full-state from a JAX sidecar (optax state) is not ported yet "
+            "(ROADMAP Queue 1 item 9); --load-state takes its weights")
+    adam_state_from_numpy(optimizer, paths, opt_state)
+
+
+def main(epochs=25, argv=None):
+    """Train from the command line; returns the ``Trainer``."""
+    parser = argparse.ArgumentParser()
+    add_arguments(parser, epochs)
+    args = parser.parse_args(argv)
+    device = check_device(args)
+    pool = make_pool(args.type, args)
+    open_run(args, "lstm_goals" if args.goals else "lstm")
+    train_ds, val_ds, val_flag = read_splits(args)
 
     model = LSTM(pool=pool, embedding_dim=args.coordinate_embedding_dim,
                  hidden_dim=args.hidden_dim, goal_flag=args.goals, goal_dim=args.goal_dim)
     params = model.init_params(torch.Generator().manual_seed(args.seed), device=device)
-
-    start_epoch = 0
-    state = None
-    if args.load_state:
-        print("Loading Model Dict")
-        state = ckpt.load_state(args.load_state)
-        if args.load_state_strict:
-            params = params_from_jax(state["params"], device=device)
-        else:
-            params, skipped = ckpt.merge_params_nonstrict(params, state["params"])
-            if skipped:
-                print("nonstrict load skipped:", skipped)
+    params, state = load_params(args, params, device)
 
     trainer = Trainer(
         model, params, step_lr(args.lr, args.step_size), criterion=args.loss,
@@ -384,19 +376,10 @@ def main(epochs=25, argv=None):
         val_flag=val_flag, col_wt=args.col_wt, col_distance=args.col_distance,
         seed=args.seed, clip_grad=args.clip_grad,
     )
-
+    start_epoch = 0
     if args.load_full_state:
-        print("Loading Optimizer Dict")
-        if not ckpt.is_port_opt_state(state["opt_state"]):
-            raise NotImplementedError(
-                "--load-full-state from a JAX sidecar (optax state) is not ported yet "
-                "(ROADMAP Queue 1 item 9); --load-state takes its weights")
-        adam_state_from_numpy(trainer.optimizer, trainer.paths, state["opt_state"])
+        restore_optimizer(trainer.optimizer, trainer.paths, state["opt_state"])
         start_epoch = state["epoch"]
-
-    train_ds = SceneDataset(train_scenes, args.obs_length, args.normalize_scene, train_goals)
-    val_ds = (SceneDataset(val_scenes, args.obs_length, args.normalize_scene, val_goals)
-              if val_scenes is not None else None)
     trainer.loop(train_ds, val_ds, args.output, epochs=args.epochs, start_epoch=start_epoch)
     return trainer
 

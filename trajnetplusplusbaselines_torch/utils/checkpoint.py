@@ -3,16 +3,18 @@
 The JAX package's ``save_predictor`` writes ``{"predictor_class", "model",
 "params"}`` with the model's configuration object and numpy params
 (``trajnetplusplusbaselines_tpu/utils/checkpoint.py``), and beside it the
-sidecar ``<out>.state``: ``{epoch, params, opt_state_hyper, opt_state}``.
-``load_predictor`` reads the predictor through an unpickler that maps the
-configuration classes of either package (the LSTM and every pool class) to
-plain stubs (unpickling restores ``__dict__`` and bypasses ``__init__``),
-then builds the port's model from the restored attributes.  An SGAN or VAE
-pickle raises ``NotImplementedError``; any other class raises
-``UnpicklingError``.  ``save_predictor`` writes the same layout with the port's
-configuration, and the sidecar when given a state.
+sidecar ``<out>.state``: ``{epoch, params, opt_state_hyper, opt_state}`` (an
+SGAN's has ``g_opt_state`` and ``d_opt_state``).  ``load_predictor`` reads
+the predictor through an unpickler that maps the configuration classes of
+either package (the LSTM, the SGAN with its generator and discriminator,
+the VAE and every pool class) to plain stubs (unpickling restores
+``__dict__`` and bypasses ``__init__``), then builds the port's model from
+the restored attributes.  A configuration with a compute dtype (a bf16
+model) raises ``NotImplementedError``; any other class raises
+``UnpicklingError``.  ``save_predictor`` writes the same layout with the
+port's configuration, and the sidecar when given a state.
 
-The port's sidecar holds numpy only; its ``opt_state`` is the torch Adam
+The port's sidecar holds numpy only; its optimizer state is the torch Adam
 state keyed by parameter path (``trainers/common.adam_state_to_numpy``).  A
 JAX sidecar's ``opt_state`` is optax's state, a tree of NamedTuples:
 ``load_state`` maps their classes to a tuple stub, with no optax import, so
@@ -27,37 +29,33 @@ import numpy as np
 import torch
 
 from ..models.lstm import LSTM, LSTMPredictor
+from ..models.sgan import SGAN, LSTMDiscriminator, LSTMGenerator, SGANPredictor
+from ..models.vae import VAE, VAEPredictor
 from ..ops import pooling
 from .convert import params_from_jax, params_to_numpy
 
 
-class _LSTMConfig:
-    pass
-
-
-def _pool_stub(port_class):
-    """A stub class for the pickled configuration of one pool class."""
+def _stub(port_class):
+    """A stub class for the pickled configuration of one port class."""
     return type(f"_{port_class.__name__}Config", (), {"port_class": port_class})
 
 
-_POOL_CLASSES = {
-    "grid": (pooling.GridBasedPooling,),
-    "nongrid": (pooling.HiddenStateMLPPooling, pooling.AttentionMLPPooling,
-                pooling.NearestNeighborMLP, pooling.NearestNeighborLSTM,
-                pooling.TrajectronPooling, pooling.NMMP),
+_CLASSES = {
+    "models.lstm": (LSTM,),
+    "models.sgan": (SGAN, LSTMGenerator, LSTMDiscriminator),
+    "models.vae": (VAE,),
+    "ops.pooling.grid": (pooling.GridBasedPooling,),
+    "ops.pooling.nongrid": (pooling.HiddenStateMLPPooling, pooling.AttentionMLPPooling,
+                            pooling.NearestNeighborMLP, pooling.NearestNeighborLSTM,
+                            pooling.TrajectronPooling, pooling.NMMP),
 }
 _CONFIG_CLASSES = {
-    (f"{package}.models.lstm", "LSTM"): _LSTMConfig
+    (f"{package}.{module}", cls.__name__): _stub(cls)
     for package in ("trajnetplusplusbaselines_tpu", "trajnetplusplusbaselines_torch")
+    for module, classes in _CLASSES.items() for cls in classes
 }
-_CONFIG_CLASSES.update({
-    (f"{package}.ops.pooling.{module}", cls.__name__): _pool_stub(cls)
-    for package in ("trajnetplusplusbaselines_tpu", "trajnetplusplusbaselines_torch")
-    for module, classes in _POOL_CLASSES.items() for cls in classes
-})
-# the JAX package's other model families, not ported yet
-_UNPORTED_MODULES = ("trajnetplusplusbaselines_tpu.models.sgan",
-                     "trajnetplusplusbaselines_tpu.models.vae")
+_PREDICTORS = {"LSTMPredictor": (LSTMPredictor, LSTM), "SGANPredictor": (SGANPredictor, SGAN),
+               "VAEPredictor": (VAEPredictor, VAE)}
 # constructor argument -> the attribute the configuration keeps it under,
 # where the two differ
 _ATTRIBUTE_OF = {"no_vel": "no_velocity"}
@@ -76,8 +74,6 @@ class _Unpickler(pickle.Unpickler):
     def find_class(self, module, name):
         if (module, name) in _CONFIG_CLASSES:
             return _CONFIG_CLASSES[(module, name)]
-        if module in _UNPORTED_MODULES:
-            raise NotImplementedError(f"{module}.{name} is not ported yet")
         if (module == "numpy" or module.startswith("numpy.")) and name in _NUMPY_NAMES:
             return super().find_class(module, name)
         raise pickle.UnpicklingError(f"pickle holds unsupported class {module}.{name}")
@@ -90,12 +86,12 @@ class _StateUnpickler(_Unpickler):
         return super().find_class(module, name)
 
 
-def pool_from_attributes(port_class, attrs: dict):
-    """A pool of ``port_class`` from the attributes of a pool configuration
-    of either package: its constructor's arguments read from them.  An
-    attribute that an older pickle lacks takes the constructor's default
-    (``logit_cap``); attributes that are not arguments (the JAX grid's
-    ``scatter_impl``) are dropped."""
+def from_attributes(port_class, attrs: dict):
+    """An object of ``port_class`` (a model or a pool) from the attributes of
+    a configuration of either package: its constructor's arguments read
+    from them.  An attribute that an older pickle lacks takes the
+    constructor's default (``logit_cap``); attributes that are not arguments
+    (the JAX grid's ``scatter_impl``) are dropped."""
     kwargs = {}
     for name, param in inspect.signature(port_class).parameters.items():
         attr = _ATTRIBUTE_OF.get(name, name)
@@ -106,39 +102,40 @@ def pool_from_attributes(port_class, attrs: dict):
     return port_class(**kwargs)
 
 
-def _pool_from_config(cfg):
+def _from_config(cfg):
+    """The port's object for a restored configuration stub, its nested
+    configurations (a model's pool, an SGAN's generator and discriminator)
+    built first."""
     if cfg is None:
         return None
     port_class = getattr(type(cfg), "port_class", None)
     if port_class is None:
-        raise NotImplementedError(f"pool {type(cfg).__name__} is not ported yet")
-    return pool_from_attributes(port_class, vars(cfg))
+        raise NotImplementedError(f"{type(cfg).__name__} is not ported yet")
+    attrs = dict(vars(cfg))
+    if attrs.get("compute_dtype") is not None:
+        raise NotImplementedError(f"compute dtype {attrs['compute_dtype']} is not ported yet")
+    for key in ("pool", "generator", "discriminator"):
+        if key in attrs:
+            attrs[key] = _from_config(attrs[key])
+    return from_attributes(port_class, attrs)
 
 
-def _model_from_config(cfg) -> LSTM:
-    if not isinstance(cfg, _LSTMConfig):
-        raise NotImplementedError(f"model {type(cfg).__name__} is not ported yet")
-    d = vars(cfg)
-    if d.get("compute_dtype") is not None:
-        raise NotImplementedError(f"compute dtype {d['compute_dtype']} is not ported yet")
-    return LSTM(
-        embedding_dim=d["embedding_dim"], hidden_dim=d["hidden_dim"],
-        pool=_pool_from_config(d["pool"]), pool_to_input=d["pool_to_input"],
-        goal_dim=d["goal_dim"], goal_flag=d["goal_flag"],
-    )
-
-
-def load_predictor(filename: str) -> LSTMPredictor:
-    """A predictor pickle of either package -> the port's ``LSTMPredictor``
-    with params as CPU tensors in the pickle's dtype."""
+def load_predictor(filename: str):
+    """A predictor pickle of either package -> the port's ``LSTMPredictor``,
+    ``SGANPredictor`` or ``VAEPredictor``, with params as CPU tensors in the
+    pickle's dtype."""
     with open(filename, "rb") as f:
         payload = _Unpickler(f).load()
-    if payload["predictor_class"] != "LSTMPredictor":
+    if payload["predictor_class"] not in _PREDICTORS:
         raise NotImplementedError(f"{payload['predictor_class']} is not ported yet")
-    return LSTMPredictor(_model_from_config(payload["model"]), params_from_jax(payload["params"]))
+    predictor_class, model_class = _PREDICTORS[payload["predictor_class"]]
+    model = _from_config(payload["model"])
+    if type(model) is not model_class:
+        raise ValueError(f"{predictor_class.__name__} pickle holds a {type(model).__name__}")
+    return predictor_class(model, params_from_jax(payload["params"]))
 
 
-def save_predictor(predictor: LSTMPredictor, filename: str, state=None) -> None:
+def save_predictor(predictor, filename: str, state=None) -> None:
     """Write the predictor pickle and, given a training ``state`` (numpy
     leaves), its sidecar ``filename + ".state"``."""
     payload = {
