@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port (LSTM family, SGAN, VAE) serving and training on one NVIDIA card.
+"""Smoke run of the PyTorch port (LSTM family, SGAN, VAE, classical predictors) on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -88,7 +88,22 @@ PyTorch built for CUDA (no jax needed).  Phases, one line each:
    (c) ``trainers.sgan.main`` and ``trainers.vae.main`` (--k 3), one epoch
        each at batch 8 on a split of phase 6's sizes, their launches held
        to the batches, and each pickle served through ``sgan_cli`` /
-       ``vae_cli --modes 3``.  Every time is printed beside the card.
+       ``vae_cli --modes 3``.  Every time is printed beside the card;
+9. classical (constant velocity, the Kalman filter, social force, ORCA; no
+   kernel of the port; f64):
+   (a) the folded KF, SF and CV at 1,024 scenes of 2-8 agents and 64 of
+       2-32 on the card against the port's CPU run of the same inputs: KF
+       parameters and smoothed last states within 1e-8 relative, F F^T = Q,
+       samples given the CPU's factors and normals within 1e-8 m; SF
+       within 1e-6 m; CV bit-exact;
+   (b) ``evaluator.classical_cli.main([... "--cv", "--kf", "--sf", "--orca",
+       "--device", "cuda"])`` on a 300-scene split (one scene of 140
+       agents): six prediction directories, every scene scored, the written
+       CV primaries the numpy CV of the observations, no kernel launched;
+   (c) folded ``predict_dataset`` scenes/s, the per-scene ``__call__`` on 32
+       scenes, ORCA's host ms per scene and each predictor's wall time in
+       (b), beside the card; the profile adds the device events of one
+       folded KF fit and one SF bucket.
 
 Then one JSON line of the kernels and, last, ``{"ok": true, "device": ...}``.
 Any failed phase raises, so the script exits non-zero and prints no result;
@@ -99,8 +114,8 @@ so does a machine without CUDA or a directory without the package.
 adds a profile phase before the last two lines: kernel and plain times at
 larger rollouts, and ``torch.profiler`` tables of warm rollouts, of a warm
 ``predict_dataset`` pass, of warm train steps, of phase 7's pool rollouts
-and train steps, and of phase 8's folded rollouts and train steps, written
-into OUT_DIR.
+and train steps, of phase 8's folded rollouts and train steps, and of
+phase 9's folded KF fit and SF bucket, written into OUT_DIR.
 """
 
 import argparse
@@ -178,6 +193,13 @@ GEN_ROLLOUTS = ((BATCH_SCENES, 8), (256, 32))
 GEN_TIMED_REPEATS = 3  # timed windows per rollout, each of GEN_TIMED_REPS rollouts
 GEN_TIMED_REPS = 5
 GEN_LABEL = 0.9  # the smoothed real label of the checked GAN steps
+# phase 9: the classical predictors, f64; (scenes, fewest, most agents) of
+# the folded buckets, the scenes of the per-scene contrast, the tolerances
+CLASSICAL_BUCKETS = ((1024, 2, 8), (64, 2, 32))
+CLASSICAL_PER_SCENE = 32
+CLASSICAL_FOLD_REPS = 3
+SF_ATOL_M, KF_RTOL, KF_SAMPLE_ATOL_M = 1e-6, 1e-8, 1e-8
+CLASSICAL_MODELS = ("kf", "sf", "sf_opt", "orca", "orca_opt", "cv")  # classical_cli's order
 
 
 def step_bound(rows):
@@ -1335,11 +1357,211 @@ def generative_phase(dev, rng, card) -> dict:
     return {"launches": counters.totals}
 
 
+def classical_scenes(rng, n_scenes, lo, hi):
+    """Observed paths (9 frames, 10 apart, the port's ``TrackRow``) of
+    ``n_scenes`` scenes of ``lo``..``hi`` agents: noisy straight walks, some
+    agents first seen at frame 2 or 5, as ``write_split`` makes them."""
+    from trajnetplusplusbaselines_torch.data.rows import TrackRow
+
+    scenes, ped = [], 0
+    for sid in range(n_scenes):
+        n = int(rng.integers(lo, hi + 1))
+        xy = (rng.uniform(-4, 4, size=(n, 2)) + rng.normal(scale=0.4, size=(n, 2))
+              * np.arange(9)[:, None, None] + rng.normal(scale=0.02, size=(9, n, 2)).cumsum(0))
+        firsts = [0] + [int(rng.choice([0, 0, 0, 2, 5])) for _ in range(n - 1)]
+        scenes.append([[TrackRow(1000 * sid + 10 * f, ped + j + 1, float(xy[f, j, 0]),
+                                 float(xy[f, j, 1])) for f in range(first, 9)]
+                       for j, first in enumerate(firsts)])
+        ped += n
+    return scenes
+
+
+def outputs_diff(got, want) -> float:
+    """Largest absolute difference between two lists of predictor outputs."""
+    return max(float(np.abs(np.asarray(g[0][k]) - np.asarray(w[0][k])).max(initial=0.0))
+               for g, w in zip(got, want) for k in (0, 1))
+
+
+def classical_phase(dev, rng, card, profile_dir=None) -> dict:
+    """Phase 9: the classical predictors (no kernel of the port; f64).
+
+    (a) at each of CLASSICAL_BUCKETS, the folded KF, SF and CV on the card
+        against the port's own run of the same inputs on the CPU: the KF's
+        fitted (Q, R, mu0, Sigma0) and smoothed last states within KF_RTOL
+        of the largest of each, F F^T = Q of the card's own factors, and
+        its samples given the CPU's factors and normals within
+        KF_SAMPLE_ATOL_M; SF positions within SF_ATOL_M; CV bit-exact;
+    (b) ``classical_cli.main([... "--cv", "--kf", "--sf", "--orca",
+        "--device", "cuda"])`` on ``write_split``'s 300 scenes (one of 140
+        agents): six prediction directories, every scene scored finite,
+        the written CV primaries the numpy CV of the observations (0.01 m
+        rounding), no launch of the port's kernels, each predictor's wall
+        time;
+    (c) the times (CUDA events after warm-up): each folded
+        ``predict_dataset`` (the CLI's predictor objects) at the buckets in
+        scenes/s, the per-scene ``__call__`` over CLASSICAL_PER_SCENE scenes
+        for contrast, and ORCA's host time per scene; under ``--profile``
+        the device events of one folded KF fit and one SF bucket.
+    Every line carries the card's name and power limit."""
+    from types import SimpleNamespace
+
+    from trajnetplusplusbaselines_torch.evaluator import classical_cli
+    from trajnetplusplusbaselines_torch.models.classical import (constant_velocity, kalman,
+                                                                  orca, socialforce)
+
+    start = time.perf_counter()
+    cpu = torch.device("cpu")
+    if profile_dir is not None:
+        Path(profile_dir).mkdir(parents=True, exist_ok=True)
+    cli_args = SimpleNamespace(kf=True, sf=True, orca=True, cv=True, modes=1, pred_length=12,
+                               obs_length=9, device=dev)
+    predictors = classical_cli.build_predictors(cli_args)
+    rows = {}
+    for s, lo, hi in CLASSICAL_BUCKETS:
+        scenes = classical_scenes(rng, s, lo, hi)
+        # (a) KF: the fit, the factors, the sampler
+        ys, mask = (np.concatenate(x) for x in zip(*(kalman.scene_tracks(p) for p in scenes)))
+        ys_c, mask_c = torch.from_numpy(ys), torch.from_numpy(mask)
+        params_c, last_c = kalman.kf_fit(ys_c, mask_c)
+        params_d, last_d = kalman.kf_fit(ys_c.to(dev), mask_c.to(dev))
+        kf_err = {}
+        for name, d, c in zip((*kalman.KFParams._fields, "x_last"), (*params_d, last_d),
+                              (*params_c, last_c)):
+            kf_err[name] = float((d.cpu() - c).abs().max() / c.abs().max())
+            if not kf_err[name] <= KF_RTOL:
+                raise AssertionError(f"KF {name} on the card differs from the CPU's by "
+                                     f"{kf_err[name]} relative at S={s}")
+        q_factor = kalman.psd_factor(params_d.q)
+        factor_err = float(((q_factor @ q_factor.mT - params_d.q).abs().max()
+                            / params_d.q.abs().max()).cpu())
+        if not factor_err <= 1e-12:
+            raise AssertionError(f"the card's F F^T differs from Q by {factor_err} relative")
+        factors = kalman.psd_factor(params_c.q), kalman.psd_factor(params_c.r)
+        normals = torch.randn(len(ys), kalman.N_SAMPLES, 12, 6, dtype=torch.float64,
+                              generator=torch.Generator().manual_seed(s))
+        sample_c = kalman.kf_sample(last_c, *factors, normals)
+        sample_d = kalman.kf_sample(last_d, *(f.to(dev) for f in factors), normals.to(dev))
+        sample_err = float((sample_d.cpu() - sample_c).abs().max())
+        if not sample_err <= KF_SAMPLE_ATOL_M:
+            raise AssertionError(f"KF samples differ from the CPU's by {sample_err} m at S={s}")
+        # SF and CV, folded, card against CPU
+        sf_err = outputs_diff(socialforce.predict_dataset(scenes, device=dev),
+                              socialforce.predict_dataset(scenes, device=cpu))
+        if not sf_err <= SF_ATOL_M:
+            raise AssertionError(f"SF positions differ from the CPU's by {sf_err} m at S={s}")
+        cv_d = constant_velocity.predict_dataset(scenes, device=dev)
+        cv_c = constant_velocity.predict_dataset(scenes, device=cpu)
+        if not all(np.array_equal(g[0][k], w[0][k]) for g, w in zip(cv_d, cv_c) for k in (0, 1)):
+            raise AssertionError(f"CV on the card is not the CPU's, bit for bit, at S={s}")
+
+        # (c) folded and per-scene times through the CLI's predictor objects
+        times = {}
+        for name in ("kf", "sf", "cv"):
+            pred = predictors[name + "_modes1"]
+            ms = time_ms(lambda: pred.predict_dataset(scenes, None, cli_args),
+                         reps=CLASSICAL_FOLD_REPS, warmup=1)
+            times[name] = {"fold_ms": ms, "fold_scenes_per_s": s / ms * 1e3}
+        if (s, lo, hi) == CLASSICAL_BUCKETS[0]:
+            few = scenes[:CLASSICAL_PER_SCENE]
+            for name in ("kf", "sf", "cv"):
+                pred = predictors[name + "_modes1"]
+                for paths in few[:2]:  # warm-up
+                    pred(paths, None)
+                ms = time_ms(lambda: [pred(paths, None) for paths in few], reps=1, warmup=0)
+                times[name]["per_scene_ms"] = ms / len(few)
+                times[name]["per_scene_scenes_per_s"] = len(few) / ms * 1e3
+            times["orca"] = {"host_ms_per_scene": host_ms(
+                lambda: [predictors["orca_modes1"](paths, None) for paths in few],
+                reps=1, warmup=1) / len(few)}
+        rows[(s, lo, hi)] = times
+        say("classical_fold", s=s, agents=[lo, hi], kf_tracks=len(ys), kf_rel_err=kf_err,
+            kf_factor_rel_err=factor_err, kf_sample_err_m=sample_err, sf_max_err_m=sf_err,
+            cv_bit_exact=True, times=times, card=card)
+
+        if profile_dir is not None:
+            ys_d, mask_d = ys_c.to(dev), mask_c.to(dev)
+            say("profile_trace", what=f"classical KF fit {len(ys)} tracks", card=card,
+                **profiled(lambda: kalman.kf_fit(ys_d, mask_d), 1,
+                           Path(profile_dir) / f"classical_kf_fit_{s}.txt", kernel=""))
+            state = torch.from_numpy(socialforce.pack_bucket(
+                [socialforce.initial_state(p) for p in scenes], hi, 0.5)).to(dev)
+            say("profile_trace", what=f"classical SF bucket S={s} A={hi}", card=card,
+                **profiled(lambda: socialforce.simulate(state, 96, 1.0 / 20, 2.1, 0.3), 1,
+                           Path(profile_dir) / f"classical_sf_bucket_{s}.txt", kernel=""))
+
+    # (b) the CLI on the card: predict, write, evaluate all six
+    cwd = os.getcwd()
+    wall = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            observed = write_split("DATA_BLOCK/synth_classical", rng)
+            build = classical_cli.build_predictors
+
+            def timed_predictors(args):
+                built = build(args)
+                for name, pred in built.items():
+                    def fold(scenes, goals, args, _fold=pred.predict_dataset, _name=name):
+                        t0 = time.perf_counter()
+                        out = _fold(scenes, goals, args)
+                        torch.cuda.synchronize()
+                        wall[_name] = time.perf_counter() - t0
+                        return out
+                    pred.predict_dataset = fold
+                return built
+
+            counters = Launches()
+            counters.zero()
+            t0 = time.perf_counter()
+            with mock.patch.object(classical_cli, "build_predictors", timed_predictors):
+                table = classical_cli.main(["--path", "synth_classical", "--cv", "--kf", "--sf",
+                                            "--orca", "--device", DEVICE])
+            cli_s = time.perf_counter() - t0
+            launches = counters.read({"fused_dlstm_step": 0, "directional_grid": 0}, add=False)
+            names = [m + "_modes1" for m in CLASSICAL_MODELS]
+            written_dirs = sorted(os.listdir("DATA_BLOCK/synth_classical/test_pred"))
+            if written_dirs != sorted(names) or sorted(wall) != sorted(names):
+                raise AssertionError(f"classical_cli wrote {written_dirs}, timed {sorted(wall)}")
+            scores = {}
+            for name in names:
+                overall = table.results[name][32:40]
+                if overall[0] != len(observed) or not np.isfinite(overall[1:3]).all():
+                    raise AssertionError(f"{name} scored {overall}")
+                scores[name] = overall[1:3]
+            written = {}
+            with open("DATA_BLOCK/synth_classical/test_pred/cv_modes1/synth.ndjson") as f:
+                for line in f:
+                    track = json.loads(line).get("track")
+                    if track is not None:
+                        written.setdefault((track["scene_id"], track["p"]), []).append(
+                            (track["x"], track["y"]))
+            cv_err = 0.0
+            for sid, (primary, xy) in enumerate(observed):
+                want = xy[-1, 0] + np.arange(1, 13)[:, None] * (xy[-1, 0] - xy[-2, 0])
+                cv_err = max(cv_err, float(np.abs(np.array(written[(sid, primary)]) - want).max()))
+            if not cv_err <= 0.005 + 1e-9:  # the writer rounds to 0.01 m
+                raise AssertionError(f"written CV primaries differ from numpy CV by {cv_err} m")
+        finally:
+            os.chdir(cwd)
+    say("classical_cli", scenes=len(observed), biggest_scene=max(xy.shape[1] for _, xy in observed),
+        cli_seconds=cli_s, predict_seconds=wall, launches=launches, ade_fde=scores,
+        cv_written_err_m=cv_err, card=card)
+    first = rows[CLASSICAL_BUCKETS[0]]
+    seconds = time.perf_counter() - start
+    print("Classical  " + "  ".join(
+        f"{name} {first[name]['fold_scenes_per_s']:.0f} scenes/s folded, "
+        f"{first[name]['per_scene_scenes_per_s']:.1f} per scene" for name in ("kf", "sf", "cv"))
+        + f"  orca {first['orca']['host_ms_per_scene']:.2f} ms/scene"
+        + f"  CLI {cli_s:.1f} s  phase {seconds:.1f} s  ({card})", flush=True)
+    return {"rows": rows, "cli_seconds": cli_s, "seconds": seconds}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="OUT_DIR", default=None,
                         help="also run the profile phase, writing its tables here")
     opts = parser.parse_args()
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing to run", file=sys.stderr)
         return 2
@@ -1581,6 +1803,9 @@ def main() -> int:
     # ---- 8: the SGAN and the VAE: folded rollouts, train steps, both trainers
     generative = generative_phase(dev, rng, card)
 
+    # ---- 9: the classical predictors: folded on the card, and classical_cli
+    classical = classical_phase(dev, np.random.default_rng(9), card, opts.profile)
+
     # ---- profile (optional): larger rollouts and profiler tables
     if opts.profile:
         out = Path(opts.profile)
@@ -1662,6 +1887,8 @@ def main() -> int:
                     **profiled(step, 5, out / f"generative_{name}_train_step.txt",
                                kernel="directional_grid_kernel"))
 
+    say("seconds", script=time.perf_counter() - started, classical=classical["seconds"],
+        card=card)
     main_s, main_a = ROLLOUTS[0]
     main_device = device["shapes"][(main_s, main_a)]
     train_grid = device["grid"][(TRAIN_BATCH, 8)]

@@ -101,6 +101,54 @@ def test_cli_default_device_refuses_to_run_on_the_cpu(tmp_path, monkeypatch, cli
     assert not os.path.exists(tmp_path / "DATA_BLOCK")  # nothing ran
 
 
+def test_classical_clis_default_device_refuses_to_run_on_the_cpu(tmp_path, monkeypatch):
+    from trajnetplusplusbaselines_torch.evaluator import classical_cli
+    from trajnetplusplusbaselines_torch.models.classical import socialforce_eval
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is available")
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        classical_cli.main(["--path", "synthset", "--cv", "--kf", "--sf", "--orca"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        socialforce_eval.main(["--data", "missing.ndjson"])
+    assert not os.listdir(tmp_path)  # nothing ran
+
+
+@pytest.mark.parametrize("name", ["constant_velocity", "kalman", "socialforce"])
+def test_classical_predictors_refuse_to_run_on_the_cpu(name):
+    """CV, KF and SF compute on the card by default and raise without one,
+    scene by scene and folded."""
+    import importlib
+
+    from trajnetplusplusbaselines_torch.data.rows import TrackRow
+
+    module = importlib.import_module(f"trajnetplusplusbaselines_torch.models.classical.{name}")
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is available")
+    scene = [[TrackRow(10 * f, 1, 0.1 * f, 0.0) for f in range(9)],
+             [TrackRow(10 * f, 2, 1.0, 0.2 * f) for f in range(9)]]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        module.predict(scene)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        module.predict_dataset([scene, scene])
+    module.predict_dataset([scene], device="cpu")
+
+
+def test_importing_orca_builds_nothing():
+    """ORCA's library is built at its first use, not when the module is
+    imported: the import works without a compiler on the path."""
+    code = ("import trajnetplusplusbaselines_torch.models.classical.orca as orca\n"
+            "assert orca.load_library.cache_info().currsize == 0\n"
+            "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=REPO, PATH=os.path.join(REPO, "no-such-dir"))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_cuda_request_without_cuda_raises():
     from trajnetplusplusbaselines_torch.data.rows import TrackRow
     from trajnetplusplusbaselines_torch.evaluator.learned import BatchedPredictor

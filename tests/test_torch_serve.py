@@ -249,8 +249,8 @@ def test_driver_skips_existing_and_backfills(tmp_path, monkeypatch, capsys):
     (tests/test_evaluator.py), on the port's single-process driver."""
     import shutil
 
-    from trajnetplusplusbaselines_tpu.models.classical import constant_velocity
     from trajnetplusplusbaselines_torch.evaluator.driver import get_predictions, run_evaluation
+    from trajnetplusplusbaselines_torch.models.classical import constant_velocity
 
     root = tmp_path / "DATA_BLOCK" / "synthset"
     make_synthetic_dataset(str(root))
@@ -263,7 +263,7 @@ def test_driver_skips_existing_and_backfills(tmp_path, monkeypatch, capsys):
 
     def cv(paths, goal):
         calls.append(1)
-        return constant_velocity.predict(paths, n_predict=12, obs_length=9)
+        return constant_velocity.predict(paths, n_predict=12, obs_length=9, device="cpu")
 
     table = run_evaluation({"cv_modes1": cv}, args)
     overall = table.results["cv_modes1"][32:40]

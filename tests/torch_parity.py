@@ -301,3 +301,34 @@ class KeyedDraws:
             return eps * jnp.exp(0.5 * z_log_var)
 
         monkeypatch.setattr(jax_model, "sample_latent", sample_latent, raising=False)
+
+
+def classical_scene(rng, n, t=21, obs=9, scene_id=0, step=0.3):
+    """Paths (the port's ``TrackRow``s, frames 10 apart) of ``n`` agents over
+    ``t`` frames, for the classical predictors: the primary throughout; the
+    others random walks from random starts, some appearing late (at the last
+    observed frame too: one past point), some leaving before the last
+    observed frame, none leaving exactly there (``pred_end`` needs a
+    future).  Pedestrian ids are unique across scene ids."""
+    from trajnetplusplusbaselines_torch.data.rows import TrackRow
+
+    f0 = 1000 * scene_id
+    xy = (rng.uniform(-4, 4, size=(1, n, 2))
+          + rng.normal(scale=0.4, size=(1, n, 2)) * np.arange(t)[:, None, None]
+          + rng.normal(scale=step, size=(t, n, 2)).cumsum(axis=0) * 0.1)
+    paths = []
+    for p in range(n):
+        first = 0 if p == 0 else int(rng.choice([0, 0, 0, 2, 5, obs - 1]))
+        last = t
+        if p and first + 1 < obs - 1 and rng.random() < 0.15:
+            last = int(rng.integers(first + 1, obs - 1))  # gone before the last observed frame
+        paths.append([TrackRow(f0 + 10 * f, 100 * scene_id + p + 1, float(xy[f, p, 0]),
+                               float(xy[f, p, 1])) for f in range(first, last)])
+    return paths
+
+
+def observed(paths, obs=9):
+    """The paths cut at the primary's last observed frame, as the evaluator's
+    ``preprocess_test`` gives them to a predictor."""
+    last = paths[0][obs - 1].frame
+    return [[r for r in p if r.frame <= last] for p in paths if p[0].frame <= last]

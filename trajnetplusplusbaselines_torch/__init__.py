@@ -13,7 +13,10 @@ the TrajNet++ evaluator CLIs, ``losses``, Adam, the ``trainers.lstm`` CLI),
 of the SGAN and of the VAE (``models/sgan.py``, ``models/vae.py``,
 ``trainers.sgan``, ``trainers.vae``), with the fused D-LSTM step and its
 grid stage as hand-written CUDA kernels (``ops/cuda/fused_step.py``,
-``csrc/``).
+``csrc/``); and the classical predictors (``models/classical``: constant
+velocity, the Kalman filter and social force folded over whole test sets
+on the device, ORCA on the host; ``evaluator.classical_cli``,
+``socialforce_eval``, ``tools.get_dest``).
 """
 
 __version__ = "0.1.0"

@@ -6,10 +6,10 @@ the port's callers reach, so that the port imports nothing of the JAX
 package.
 """
 
-from . import augmentation, batching, writers
+from . import augmentation, batching, interactions, writers
 from .load import prepare_data
 from .reader import Reader
 from .rows import SceneRow, TrackRow
 
 __all__ = ["SceneRow", "TrackRow", "Reader", "writers", "augmentation", "batching",
-           "prepare_data"]
+           "interactions", "prepare_data"]
