@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port (LSTM family, SGAN, VAE, classical predictors) on one NVIDIA card.
+"""Smoke run of the PyTorch port (LSTM family, SGAN, VAE, classical predictors, training options) on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -103,7 +103,33 @@ PyTorch built for CUDA (no jax needed).  Phases, one line each:
    (c) folded ``predict_dataset`` scenes/s, the per-scene ``__call__`` on 32
        scenes, ORCA's host ms per scene and each predictor's wall time in
        (b), beside the card; the profile adds the device events of one
-       folded KF fit and one SF bucket.
+       folded KF fit and one SF bucket;
+10. training options, at the flagship's widths (every line beside the card):
+   (a) the grid stage's bf16 instantiation against the plain bf16 grid,
+       bit-exact, at phase 2's buckets and on ``grid_edge_cases``; its
+       device time per launch against its bf16 bound (``grid_bound_ms``
+       with 2-byte values) at phase 4b's grid shapes, the f32
+       instantiation's beside it in the same call;
+   (b) ``trainers.lstm.main([... "--bf16", "--device", "cuda"])``, 2 epochs
+       at batch 8 on a split of phase 6's sizes: 19 bf16 grid-stage
+       launches per train batch and 2 x 19 per val batch, no fused launch;
+       finite losses, f32 masters and Adam state; the pickle served in f32
+       through ``lstm_cli`` on the fused route; one bf16 step on the card
+       against the same step on the CPU (loss 1e-2 relative, gradient
+       cosine above 0.99);
+   (d) ``--obs_dropout``, one epoch: 19 - start_length grid-stage launches
+       per batch, from the start lengths the trainer logs;
+   (e) ``trainers.ensemble.main([... "--seeds", "42", "10", "20", "30",
+       "40", "--device", "cuda"])``, 2 epochs at batch 8: five pickles and
+       sidecars, finite member losses, 19 grid-stage launches per ensemble
+       step (train and val); one member resumed by the sequential trainer;
+       an ensemble step's member gradients against five sequential steps on
+       the card (phase 6's tolerances); the ensemble step at E=5 and one
+       sequential step timed (CUDA events) with their device busy shares;
+   (c) ``--remat``: a flagship and an attentionmlp step at S=256, A=32 with
+       and without it: loss and gradients within 1e-6 of each leaf's
+       largest, the peak memory, the time and the grid-stage launches (19
+       more with remat) both ways.
 
 Then one JSON line of the kernels and, last, ``{"ok": true, "device": ...}``.
 Any failed phase raises, so the script exits non-zero and prints no result;
@@ -199,6 +225,18 @@ CLASSICAL_BUCKETS = ((1024, 2, 8), (64, 2, 32))
 CLASSICAL_PER_SCENE = 32
 CLASSICAL_FOLD_REPS = 3
 SF_ATOL_M, KF_RTOL, KF_SAMPLE_ATOL_M = 1e-6, 1e-8, 1e-8
+# phase 10: the rest of training, at the flagship's widths
+ENSEMBLE_SEEDS = (42, 10, 20, 30, 40)  # the published protocol's five seeds
+REMAT_SHAPE = (256, 32)  # (scenes, agents) of the remat steps: a crowded bucket
+REMAT_REPS = 5
+# a bf16 step on the card against the same bf16 step on the CPU: losses
+# within 1e-2 relative and gradients' cosine above 0.99 (cuBLAS and the
+# CPU's bf16 products accumulate differently), the CPU tests' tolerance of
+# the port's bf16 step against JAX's
+BF16_LOSS_RTOL, BF16_GRAD_COSINE = 1e-2, 0.99
+# a step with remat against one without: the same kernels recomputed; held
+# to 1e-6 of each leaf's largest gradient
+REMAT_ATOL_SHARE = 1e-6
 CLASSICAL_MODELS = ("kf", "sf", "sf_opt", "orca", "orca_opt", "cv")  # classical_cli's order
 
 
@@ -210,11 +248,12 @@ def step_bound(rows):
     return 1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes"
 
 
-def grid_bound_ms(rows, n):
+def grid_bound_ms(rows, n, value_bytes=4):
     """The least time for the grid stage over ``rows`` rows at side ``n``: its
-    bytes (positions at t-1 and t and two presence bytes in, the 2 n^2 f32
-    grid out) at the memory's rate."""
-    return 1e3 * (2 * 8 + 2 + 2 * n * n * 4) * rows / PEAK_BYTES
+    bytes (positions at t-1 and t and two presence bytes in, the 2 n^2 grid
+    out, values of ``value_bytes``: 4 in f32, 2 in bf16) at the memory's
+    rate."""
+    return 1e3 * (4 * value_bytes + 2 + 2 * n * n * value_bytes) * rows / PEAK_BYTES
 
 
 def host_ms(fn, reps=20, warmup=2) -> float:
@@ -642,6 +681,38 @@ def check_against_cpu(trainer, batch):
                        step_on(trainer, batch, "cpu", torch.float64), trainer.paths)
 
 
+def flagship_argv(path, *extra):
+    """``trainers.lstm`` / ``trainers.ensemble`` arguments of the flagship
+    D-LSTM at batch 8 on the card."""
+    return ["--path", path, "--type", "directional", "--n", str(N), "--cell_side",
+            str(CELL_SIDE), "--pool_dim", "256", "--hidden-dim", "128",
+            "--coordinate-embedding-dim", "64", "--batch_size", str(TRAIN_BATCH),
+            "--device", DEVICE, *extra]
+
+
+def close_log():
+    """Close a trainer's log file, which it opened as the root logger's."""
+    for handler in logging.getLogger().handlers[:]:
+        handler.close()
+        logging.getLogger().removeHandler(handler)
+
+
+def log_records(path) -> dict:
+    """A trainer's JSON log, records by type."""
+    with open(path) as f:
+        records = [json.loads(line) for line in f]
+    out = {}
+    for r in records:
+        out.setdefault(r.get("type"), []).append(r)
+    return out
+
+
+def batches_per_epoch(resident) -> int:
+    """The batches of one epoch over a ``ResidentDataset`` at batch 8."""
+    plan = resident.epoch_plan(TRAIN_BATCH, np.random.default_rng(0), shuffle=False)
+    return sum(idx.shape[0] for idx, _ in plan.values())
+
+
 def train_phase(dev, rng) -> dict:
     """Phase 6: train the flagship D-LSTM through ``trainers.lstm.main`` on
     ``dev`` and check it (see the module's docstring).  Returns the launch
@@ -665,28 +736,18 @@ def train_phase(dev, rng) -> dict:
             fused_step.fused_dlstm_step.launches = 0
             fused_step.directional_grid.launches = 0
             t0 = time.perf_counter()
-            trainer = train_cli.main(argv=[
-                "--path", "synth_train", "--type", "directional", "--n", str(N),
-                "--cell_side", str(CELL_SIDE), "--pool_dim", "256", "--hidden-dim", "128",
-                "--coordinate-embedding-dim", "64", "--epochs", str(TRAIN_EPOCHS),
-                "--batch_size", str(TRAIN_BATCH), "--save_every", "1", "--seed", "0",
-                "-o", "smoke", "--device", DEVICE])
+            trainer = train_cli.main(argv=flagship_argv(
+                "synth_train", "--epochs", str(TRAIN_EPOCHS), "--save_every", "1", "--seed", "0",
+                "-o", "smoke"))
             torch.cuda.synchronize()
             train_s = time.perf_counter() - t0
             train_launches = {"fused_dlstm_step": fused_step.fused_dlstm_step.launches,
                               "directional_grid": fused_step.directional_grid.launches}
-            for handler in logging.getLogger().handlers[:]:  # the trainer's log file
-                handler.close()
-                logging.getLogger().removeHandler(handler)
+            close_log()
 
             # batches per epoch from the datasets the trainer made resident on
             # the card, train first (epoch 0 trains before it validates)
             (train_ds, resident), (val_ds, val_resident) = trainer._resident.values()
-
-            def batches_per_epoch(dataset):
-                plan = dataset.epoch_plan(TRAIN_BATCH, np.random.default_rng(0), shuffle=False)
-                return sum(idx.shape[0] for idx, _ in plan.values())
-
             train_batches, val_batches = map(batches_per_epoch, (resident, val_resident))
             n_train, n_val = len(train_ds), len(val_ds)
             want = {"fused_dlstm_step": 2 * 19 * val_batches * TRAIN_EPOCHS,
@@ -858,29 +919,32 @@ def device_phase(dev, rng, model, params, rollout_ms) -> dict:
 
 
 class Launches:
-    """The launch counters of the port's two kernels, zeroed just before a
-    run and read just after it, with a running total by kernel of the runs
-    read into it."""
+    """The launch counters of the port's kernels (the fused step, the grid
+    stage and its bf16 instantiation), zeroed just before a run and read
+    just after it, with a running total by kernel of the runs read into
+    it."""
 
     def __init__(self):
         from trajnetplusplusbaselines_torch.ops.cuda import fused_step
 
-        self.kernels = (("fused_dlstm_step", fused_step.fused_dlstm_step),
-                        ("directional_grid", fused_step.directional_grid))
-        self.totals = {name: 0 for name, _ in self.kernels}
+        self.kernels = (("fused_dlstm_step", fused_step.fused_dlstm_step, "launches"),
+                        ("directional_grid", fused_step.directional_grid, "launches"),
+                        ("directional_grid_bf16", fused_step.directional_grid, "bf16_launches"))
+        self.totals = {name: 0 for name, _, _ in self.kernels}
 
     def zero(self):
-        for _, fn in self.kernels:
-            fn.launches = 0
+        for _, fn, attr in self.kernels:
+            setattr(fn, attr, 0)
 
     def read(self, want, add=True) -> dict:
-        """The counts since ``zero``, held to ``want``; ``add`` takes them
-        into the totals."""
+        """The counts since ``zero``, held to ``want`` (a kernel it does not
+        name: none); ``add`` takes them into the totals."""
         torch.cuda.synchronize()
-        got = {name: fn.launches for name, fn in self.kernels}
+        got = {name: getattr(fn, attr) for name, fn, attr in self.kernels}
         if add:
             for name in self.totals:
                 self.totals[name] += got[name]
+        want = {name: want.get(name, 0) for name in self.totals}
         if got != want:
             raise AssertionError(f"launched {got}, expected {want}")
         return got
@@ -1051,13 +1115,9 @@ def pools_phase(dev, rng) -> dict:
                     "-o", "pools", "--device", DEVICE, *(["--goals"] if goals else [])])
                 torch.cuda.synchronize()
                 cli_s = time.perf_counter() - t0
-                for handler in logging.getLogger().handlers[:]:  # the trainer's log file
-                    handler.close()
-                    logging.getLogger().removeHandler(handler)
+                close_log()
                 (_, resident), (_, val_resident) = trainer._resident.values()
-                batches = [sum(idx.shape[0] for idx, _ in
-                               r.epoch_plan(TRAIN_BATCH, np.random.default_rng(0)).values())
-                           for r in (resident, val_resident)]
+                batches = [batches_per_epoch(r) for r in (resident, val_resident)]
                 route = trainer.model.route(records=True)
                 train_launches = read({"fused_dlstm_step": 0, "directional_grid":
                                        19 * (batches[0] + 2 * batches[1]) * (route == "grid")})
@@ -1305,13 +1365,9 @@ def generative_phase(dev, rng, card) -> dict:
                     "-o", "gen", "--device", DEVICE, *extra])
                 torch.cuda.synchronize()
                 cli_s = time.perf_counter() - t0
-                for handler in logging.getLogger().handlers[:]:  # the trainer's log file
-                    handler.close()
-                    logging.getLogger().removeHandler(handler)
+                close_log()
                 (_, resident), (_, val_resident) = trainer._resident.values()
-                batches = [sum(idx.shape[0] for idx, _ in
-                               r.epoch_plan(TRAIN_BATCH, np.random.default_rng(0)).values())
-                           for r in (resident, val_resident)]
+                batches = [batches_per_epoch(r) for r in (resident, val_resident)]
                 if kind == "sgan":
                     kinds = trainer.step_types(batches[0])
                     g, d = kinds.count("g"), kinds.count("d")
@@ -1355,6 +1411,274 @@ def generative_phase(dev, rng, card) -> dict:
             f"{kind} {step} {row['train_step_ms']:.1f} ms" for kind, rows in steps.items()
             for step, row in rows.items()) + f"  ({card})", flush=True)
     return {"launches": counters.totals}
+
+def bf16_grid_phase(dev, rng, card) -> dict:
+    """Phase 10(a): the grid stage's bf16 instantiation against the plain
+    bf16 grid, bit-exact, at phase 2's buckets and on ``grid_edge_cases``;
+    its device time per launch (``torch.profiler``) against its bf16 bound at
+    ``GRID_DEVICE_SHAPES``, the f32 instantiation's beside it in the same
+    call, and the plain bf16 grid's time per call at a train step's shape."""
+    from trajnetplusplusbaselines_torch.ops.cuda import fused_step
+
+    for a in BUCKETS:
+        s = math.ceil(ROWS_PER_BUCKET / a)
+        obs1, obs2, p1, p2 = step_inputs(rng, s, a, dev)
+        obs1, obs2 = obs1.bfloat16(), obs2.bfloat16()
+        got = fused_step.directional_grid(obs1, obs2, p1, p2, cell_side=CELL_SIDE)
+        want = fused_step.directional_grid_plain(obs1, obs2, p1, p2, cell_side=CELL_SIDE)
+        torch.cuda.synchronize()
+        if got.dtype != torch.bfloat16 or not torch.equal(got, want):
+            bad = (got != want).nonzero()[:5].tolist()
+            raise AssertionError(f"bf16 grid differs at A={a}: first cells {bad}")
+    cases = grid_edge_cases(np.random.default_rng(3))
+    for case in cases:
+        obs1, obs2 = (torch.from_numpy(x).to(dev).bfloat16() for x in (case.obs1, case.obs2))
+        p1, p2 = (torch.from_numpy(x).to(dev) for x in (case.p1, case.p2))
+        got = fused_step.directional_grid(obs1, obs2, p1, p2, **case.geometry)
+        want = fused_step.directional_grid_plain(obs1, obs2, p1, p2, **case.geometry)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            bad = (got != want).nonzero()[:5].tolist()
+            raise AssertionError(f"bf16 grid edge case {case.name} differs: first cells {bad}")
+
+    rows = {}
+    for s, a in GRID_DEVICE_SHAPES:
+        obs1, obs2, p1, p2 = step_inputs(rng, s, a, dev)
+        row = {"rows": s * a, "n": N}
+        for tag, dtype, value_bytes in (("f32", torch.float32, 4), ("bf16", torch.bfloat16, 2)):
+            x1, x2 = obs1.to(dtype), obs2.to(dtype)
+            ms = kernel_ms_per_launch(lambda: fused_step.directional_grid(x1, x2, p1, p2),
+                                      GRID_REPS, "directional_grid_kernel")
+            bound = grid_bound_ms(s * a, N, value_bytes)
+            row.update({f"{tag}_device_ms": ms, f"{tag}_bound_ms": bound,
+                        f"{tag}_bound_share": bound / ms})
+        rows[(s, a)] = row
+    obs1, obs2, p1, p2 = step_inputs(rng, TRAIN_BATCH, 8, dev)
+    obs1, obs2 = obs1.bfloat16(), obs2.bfloat16()
+    per_call_ms = time_ms(lambda: fused_step.directional_grid(obs1, obs2, p1, p2), reps=50)
+    plain_ms = time_ms(lambda: fused_step.directional_grid_plain(obs1, obs2, p1, p2), reps=50)
+    say("bf16_grid", buckets=list(BUCKETS), edge_cases=len(cases), bit_exact=True,
+        per_call_ms=per_call_ms, plain_ms=plain_ms,
+        shapes={f"{s}x{a}": row for (s, a), row in rows.items()}, card=card)
+    return {"rows": rows, "per_call_ms": per_call_ms, "plain_ms": plain_ms}
+
+
+def training_options_phase(dev, rng, card) -> dict:
+    """Phase 10 (b)-(e) (see the module's docstring): ``--bf16``,
+    ``--remat``, ``--obs_dropout`` and the seed ensemble at the flagship's
+    widths.  Returns the launch counts of its trainer runs by run and
+    kernel, and its figures."""
+    from trajnetplusplusbaselines_torch.evaluator import lstm_cli
+    from trajnetplusplusbaselines_torch.evaluator.learned import bucket_plan
+    from trajnetplusplusbaselines_torch.trainers import ensemble
+    from trajnetplusplusbaselines_torch.trainers import lstm as train_cli
+    from trajnetplusplusbaselines_torch.trainers.common import Batch, bucket_batches, step_lr
+    from trajnetplusplusbaselines_torch.utils.convert import params_from_jax, params_to_numpy
+
+    counters = Launches()
+    launches, figures = {}, {}
+    cwd = os.getcwd()
+    root, path = "DATA_BLOCK/synth_options", "synth_options"
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            n_train, n_val, n_test = POOL_SPLIT  # phase 6's sizes
+            write_split(root, rng, n_scenes=n_train, big=None, observed_only=(), full=("train",))
+            write_split(root, rng, n_scenes=n_val, big=None, observed_only=(), full=("val",))
+            observed = write_split(root, rng, n_scenes=n_test, big=None)
+            serve_plan = bucket_plan([xy.shape[1] for _, xy in observed], BATCH_SCENES)
+
+            # (b) --bf16: the grid stage in bf16, no fused step
+            counters.zero()
+            t0 = time.perf_counter()
+            trainer = train_cli.main(argv=flagship_argv(
+                path, "--bf16", "--epochs", str(TRAIN_EPOCHS), "--save_every", "1",
+                "--seed", "0", "-o", "bf16"))
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            close_log()
+            (_, resident), (_, val_resident) = trainer._resident.values()
+            tb, vb = batches_per_epoch(resident), batches_per_epoch(val_resident)
+            launches["bf16_train"] = counters.read(
+                {"directional_grid_bf16": 19 * (tb + 2 * vb) * TRAIN_EPOCHS})
+            out = f"OUTPUT_BLOCK/{path}/lstm_directional_bf16.pkl"
+            records = log_records(out + ".log")
+            losses = ([r["loss"] for r in records["train-epoch"]]
+                      + [r[k] for r in records["val-epoch"] for k in ("loss", "test_loss")])
+            if len(records["train-epoch"]) != TRAIN_EPOCHS or not np.isfinite(losses).all():
+                raise AssertionError(f"bf16 training logged {records}")
+            if any(leaf.dtype != torch.float32 for leaf in trainer.leaves) or any(
+                    st["exp_avg"].dtype != torch.float32 for st in trainer.optimizer.state.values()):
+                raise AssertionError("bf16 training left masters or Adam state off f32")
+            counters.zero()
+            table = lstm_cli.main(["--path", path, "--output", out, "--device", DEVICE])
+            launches["bf16_serve"] = counters.read({"fused_dlstm_step": 19 * len(serve_plan)})
+            served = table.results["lstm_directional_bf16_modes1"][32:40]
+            if served[0] != n_test or not np.isfinite(served[1:3]).all():
+                raise AssertionError(f"the bf16-trained model scored {served}")
+            # one bf16 step on the card against the same step on the CPU
+            key = (21, 8) if (21, 8) in resident.buckets else next(iter(resident.buckets))
+            idx, valid = resident.epoch_plan(TRAIN_BATCH, np.random.default_rng(1))[key]
+            batch = next(bucket_batches(resident.buckets[key], idx, valid))
+            loss_k, grads_k = trainer.loss_and_grads(*batch)
+            cpu = train_cli.Trainer(trainer.model, params_from_jax(params_to_numpy(
+                trainer.params)), step_lr(1e-3, 10))
+            loss_c, grads_c = cpu.loss_and_grads(*(x.cpu() for x in batch))
+            bf16_loss_rel = abs(float(loss_k) - float(loss_c)) / abs(float(loss_c))
+            flat_k, flat_c = (torch.cat([g.detach().double().cpu().flatten() for g in grads])
+                              for grads in (grads_k, grads_c))
+            bf16_cosine = float(flat_k @ flat_c / (flat_k.norm() * flat_c.norm()))
+            if bf16_loss_rel > BF16_LOSS_RTOL or not bf16_cosine > BF16_GRAD_COSINE:
+                raise AssertionError(f"bf16 step: loss {bf16_loss_rel} relative, gradient "
+                                     f"cosine {bf16_cosine} against the CPU")
+            step_ms = time_ms(lambda: trainer.train_step(*batch), reps=10)
+            figures["bf16"] = {"cli_seconds": cli_s, "train_batches": tb, "val_batches": vb,
+                               "epoch_losses": [r["loss"] for r in records["train-epoch"]],
+                               "served_ade_fde": served[1:3], "cpu_loss_rel_err": bf16_loss_rel,
+                               "cpu_grad_cosine": bf16_cosine, "train_step_ms": step_ms}
+            say("bf16_train", launches=[launches["bf16_train"], launches["bf16_serve"]],
+                **figures["bf16"], card=card)
+
+            # (d) --obs_dropout: 19 - start_length grid launches a batch
+            counters.zero()
+            trainer = train_cli.main(argv=flagship_argv(
+                path, "--obs_dropout", "--epochs", "1", "--seed", "0", "-o", "drop"))
+            torch.cuda.synchronize()
+            close_log()
+            records = log_records(f"OUTPUT_BLOCK/{path}/lstm_directional_drop.pkl.log")
+            (dropout,) = records["obs-dropout"]
+            start_lengths = dropout["start_lengths"]
+            hb = math.ceil(n_train / TRAIN_BATCH)  # the host path's batches: not by bucket
+            if len(start_lengths) != hb or not all(0 <= sl <= 7 for sl in start_lengths):
+                raise AssertionError(f"--obs_dropout logged {start_lengths} for {hb} batches")
+            launches["obs_dropout"] = counters.read(
+                {"directional_grid": sum(19 - sl for sl in start_lengths),
+                 "fused_dlstm_step": 2 * 19 * vb})
+            if not np.isfinite([r["loss"] for r in records["train-epoch"]]).all():
+                raise AssertionError(f"--obs_dropout logged {records['train-epoch']}")
+            figures["obs_dropout"] = {"start_lengths": start_lengths,
+                                      "epoch_loss": records["train-epoch"][0]["loss"]}
+            say("obs_dropout", launches=launches["obs_dropout"], batches=hb,
+                start_length_counts=np.bincount(start_lengths, minlength=8).tolist(), card=card)
+
+            # (e) the seed ensemble: 19 grid launches an ensemble step
+            seeds = [str(s) for s in ENSEMBLE_SEEDS]
+            counters.zero()
+            t0 = time.perf_counter()
+            ens = ensemble.main(argv=flagship_argv(
+                path, "--epochs", str(TRAIN_EPOCHS), "--save_every", "1", "--seeds", *seeds))
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            close_log()
+            launches["ensemble"] = counters.read(
+                {"directional_grid": 19 * (tb + vb) * TRAIN_EPOCHS})
+            outs = [f"OUTPUT_BLOCK/{path}/lstm_directional_seed{s}.pkl" for s in seeds]
+            missing = [o + x for o in outs for x in ("", ".state") if not os.path.exists(o + x)]
+            if missing:
+                raise AssertionError(f"the ensemble wrote no {missing}")
+            records = log_records(f"OUTPUT_BLOCK/{path}/lstm_directional_seed{seeds[0]}"
+                                  "_ensemble.pkl.log")
+            member_losses = [r["loss"] for r in records["train-epoch"]]
+            if (len(member_losses) != TRAIN_EPOCHS
+                    or not all(len(x) == len(seeds) for x in member_losses)
+                    or not np.isfinite(member_losses + [r["loss"] for r in
+                                                        records["val-epoch"]]).all()):
+                raise AssertionError(f"the ensemble logged {records}")
+            # one member resumed by the sequential trainer
+            trainer = train_cli.main(argv=flagship_argv(
+                path, "--epochs", str(TRAIN_EPOCHS + 1), "--seed", seeds[1], "-o", "resumed",
+                "--load-full-state", outs[1] + ".state"))
+            close_log()
+            resumed = log_records(f"OUTPUT_BLOCK/{path}/lstm_directional_resumed.pkl.log")
+            if [r["epoch"] for r in resumed["train-epoch"]] != [TRAIN_EPOCHS + 1] or not (
+                    np.isfinite(resumed["train-epoch"][0]["loss"])):
+                raise AssertionError(f"the resumed member logged {resumed}")
+        finally:
+            os.chdir(cwd)
+
+    # (e) an ensemble step's member gradients against five sequential steps
+    (train_scenes, _), _ = ens._resident.values()
+    stacked = next(ens._member_batches(train_scenes, shuffle=False))
+    losses_e, grads_e = ens.loss_and_grads(*stacked)
+    member_err = {"loss_rel": 0.0, "grad_share": 0.0}
+    sequential = []
+    for k, seed in enumerate(ENSEMBLE_SEEDS):
+        member = Batch(stacked.xy[:, k], stacked.mask[:, k], stacked.scene_mask[k],
+                       stacked.goals[k], stacked.slot_mask[k])
+        seq = train_cli.Trainer(ens.model, ensemble.tree_map(
+            lambda x: x.clone(), ensemble.member_params(ens.params, k)), step_lr(1e-3, 10),
+            seed=seed)
+        loss_s, grads_s = seq.loss_and_grads(*member)
+        loss_rel, grad_err = step_errors((losses_e[k], [g[k] for g in grads_e]),
+                                         (loss_s.cpu().double(),
+                                          [g.cpu().double() for g in grads_s]), seq.paths)
+        member_err = {"loss_rel": max(member_err["loss_rel"], loss_rel),
+                      "grad_share": max(member_err["grad_share"], grad_err)}
+        sequential.append((seq, member))
+
+    # (e) timed: the ensemble step at E=5 and one sequential step, warm
+    seq, member = sequential[0]
+    timed = {"ensemble_step_ms": time_ms(lambda: ens.train_step(*stacked), reps=10),
+             "sequential_step_ms": time_ms(lambda: seq.train_step(*member), reps=10)}
+    busy = {"ensemble": profiled(lambda: ens.train_step(*stacked), 5, None,
+                                 kernel="directional_grid_kernel"),
+            "sequential": profiled(lambda: seq.train_step(*member), 5, None,
+                                   kernel="directional_grid_kernel")}
+    timed["ensemble_per_member_ms"] = timed["ensemble_step_ms"] / len(ENSEMBLE_SEEDS)
+    timed["ensemble_scenes_per_s"] = (len(ENSEMBLE_SEEDS) * TRAIN_BATCH
+                                      / timed["ensemble_step_ms"] * 1e3)
+    timed["sequential_scenes_per_s"] = TRAIN_BATCH / timed["sequential_step_ms"] * 1e3
+    figures["ensemble"] = {
+        "cli_seconds": cli_s, "members": len(ENSEMBLE_SEEDS),
+        "member_epoch_losses": member_losses, "member_vs_sequential": member_err, **timed,
+        **{f"{name}_{key}": row[key] for name, row in busy.items()
+           for key in ("device_busy", "device_events_per_rep", "kernel_launches")}}
+    say("ensemble", launches=launches["ensemble"], **figures["ensemble"], card=card)
+
+    # (c) --remat: a flagship and an attentionmlp step at S=256, A=32
+    from trajnetplusplusbaselines_torch.models.lstm import LSTM
+    from trajnetplusplusbaselines_torch.ops.pooling import GridBasedPooling
+
+    flagship = LSTM(pool=GridBasedPooling(type_="directional", hidden_dim=128,
+                                          cell_side=CELL_SIDE, n=N, out_dim=256),
+                    embedding_dim=64, hidden_dim=128)
+    s, a = REMAT_SHAPE
+    xy, mask, scene = train_inputs(rng, s, a, dev)
+    batch = Batch(xy, mask, scene, torch.zeros_like(xy[0]), mask.any(dim=0))
+    figures["remat"] = {}
+    for name, model in (("directional", flagship), ("attentionmlp", pool_models()["attentionmlp"])):
+        params = model.init_params(torch.Generator().manual_seed(5), device=dev)
+        rows = {}
+        for remat in (False, True):
+            model.remat = remat
+            tr = train_cli.Trainer(model, ensemble.tree_map(lambda x: x.clone(), params),
+                                   step_lr(1e-3, 10))
+            tr.loss_and_grads(*batch)  # warm
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            counters.zero()
+            result = tr.loss_and_grads(*batch)
+            grid = counters.read({"directional_grid": (38 if remat else 19)
+                                  if name == "directional" else 0}, add=False)
+            peak = torch.cuda.max_memory_allocated() - base
+            rows[remat] = {"result": result, "peak_bytes": peak,
+                           "grid_launches": grid["directional_grid"],
+                           "ms": time_ms(lambda: tr.loss_and_grads(*batch), reps=REMAT_REPS,
+                                         warmup=1)}
+        (loss0, grads0), (loss1, grads1) = rows[False]["result"], rows[True]["result"]
+        err = max([abs(float(loss1) - float(loss0)) / abs(float(loss0))]
+                  + [float((g1 - g0).abs().max()) / max(float(g0.abs().max()), 1e-30)
+                     for g0, g1 in zip(grads0, grads1)])
+        if err > REMAT_ATOL_SHARE:
+            raise AssertionError(f"{name}: remat moved the step by {err} of a leaf's largest")
+        model.remat = False
+        figures["remat"][name] = {
+            "max_err_share": err, **{f"{key}_{'remat' if r else 'plain'}": row[key]
+                                     for r, row in rows.items()
+                                     for key in ("peak_bytes", "grid_launches", "ms")}}
+    say("remat", s=s, a=a, **figures["remat"], card=card)
+    return {"launches": launches, "figures": figures}
 
 
 def classical_scenes(rng, n_scenes, lo, hi):
@@ -1806,6 +2130,13 @@ def main() -> int:
     # ---- 9: the classical predictors: folded on the card, and classical_cli
     classical = classical_phase(dev, np.random.default_rng(9), card, opts.profile)
 
+    # ---- 10: the rest of training: the bf16 grid stage, --bf16, --obs_dropout,
+    # the seed ensemble and --remat
+    t10 = time.perf_counter()
+    bf16_grid = bf16_grid_phase(dev, np.random.default_rng(10), card)
+    options = training_options_phase(dev, np.random.default_rng(11), card)
+    phase10_s = time.perf_counter() - t10
+
     # ---- profile (optional): larger rollouts and profiler tables
     if opts.profile:
         out = Path(opts.profile)
@@ -1888,15 +2219,16 @@ def main() -> int:
                                kernel="directional_grid_kernel"))
 
     say("seconds", script=time.perf_counter() - started, classical=classical["seconds"],
-        card=card)
+        training_options=phase10_s, card=card)
     main_s, main_a = ROLLOUTS[0]
     main_device = device["shapes"][(main_s, main_a)]
     train_grid = device["grid"][(TRAIN_BATCH, 8)]
     csrc = "trajnetplusplusbaselines_torch/csrc/"
-    by_path = {name: {"serve": main_launches[name], "train": train["launches"][name],
-                      "pools": pools["launches"][name],
-                      "generative": generative["launches"][name]}
-               for name in main_launches}
+    runs = {"serve": main_launches, "train": train["launches"], "pools": pools["launches"],
+            "generative": generative["launches"], **options["launches"]}
+    by_path = {name: {run: counts.get(name, 0) for run, counts in runs.items()}
+               for name in ("fused_dlstm_step", "directional_grid", "directional_grid_bf16")}
+    bf16_row = bf16_grid["rows"][(TRAIN_BATCH, 8)]
     print(json.dumps({"kernels": [{
         "name": "fused_dlstm_step",
         "route": "cuda",
@@ -1936,6 +2268,24 @@ def main() -> int:
         "library_ms": None,
         "shapes": {f"{s}x{a}": row for (s, a), row in device["grid"].items()},
         "geometries": pools["grid"],
+    }, {
+        # the grid stage's bf16 instantiation, launched by a --bf16 train step
+        "name": "directional_grid_bf16",
+        "route": "cuda",
+        "source": csrc + "directional_grid.cu",
+        "replaces": "trajnetplusplusbaselines_tpu/ops/pallas/fused_step.py:76",
+        "launches": sum(by_path["directional_grid_bf16"].values()),
+        "launches_by_path": by_path["directional_grid_bf16"],
+        "max_abs_err": 0.0,  # bit-exact against the plain bf16 grid, or the phase raised
+        "ms": bf16_row["bf16_device_ms"],
+        "device_ms": bf16_row["bf16_device_ms"],
+        "plain_ms": bf16_grid["plain_ms"],
+        "bound_ms": bf16_row["bf16_bound_ms"],
+        "bound_by": "bytes",
+        "bound_share": bf16_row["bf16_bound_share"],
+        "per_call_ms": bf16_grid["per_call_ms"],
+        "library_ms": None,
+        "shapes": {f"{s}x{a}": row for (s, a), row in bf16_grid["rows"].items()},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -165,9 +165,14 @@ def test_load_predictor_refuses_what_is_not_ported(tmp_path):
     from trajnetplusplusbaselines_tpu.models.sgan import SGAN, SGANPredictor
     from trajnetplusplusbaselines_tpu.utils.checkpoint import save_predictor as jax_save
 
+    # a bf16 configuration loads (it was refused until bf16 was ported) and
+    # serves in bf16; a compute dtype other than bf16 is still refused
     bf16 = str(tmp_path / "bf16.pkl")
     model = SGAN()
     model.generator.compute_dtype = "bfloat16"  # a dtype the unpickler can restore
+    jax_save(SGANPredictor(model, {}), None, bf16)
+    assert load_predictor(bf16).model.generator.compute_dtype == torch.bfloat16
+    model.generator.compute_dtype = "float16"
     jax_save(SGANPredictor(model, {}), None, bf16)
     with pytest.raises(NotImplementedError, match="compute dtype"):
         load_predictor(bf16)

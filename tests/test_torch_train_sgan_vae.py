@@ -215,10 +215,28 @@ def test_trainer_default_device_refuses_to_run_on_the_cpu(tmp_path, monkeypatch,
     assert not os.path.exists(tmp_path / "OUTPUT_BLOCK")  # nothing ran
 
 
-@pytest.mark.parametrize("flags,match", [(["--bf16"], "item 5"), (["--dp", "2"], "item 8"),
+# the --bf16 case was a refusal until bf16 was ported; it keeps its id and
+# now trains an epoch of each trainer in bf16
+@pytest.mark.parametrize("flags,match", [pytest.param(["--bf16"], None, id="flags0-item 5"),
+                                         (["--dp", "2"], "item 8"),
                                          (["--orbax"], "Do not port")])
 def test_trainers_refuse_what_is_not_ported(tmp_path, monkeypatch, flags, match):
     monkeypatch.chdir(tmp_path)
+    if match is None:
+        make_synthetic_dataset(os.path.join(str(tmp_path), "DATA_BLOCK", "synthset"))
+        for module, extra in ((sgan_trainer, ["--noise_dim", "4"]),
+                              (vae_trainer, ["--vae_latent_dim", "8"])):
+            trainer = module.main(argv=[*TINY, *extra, *flags, "--epochs", "1", "-o", "b"])
+            assert trainer.model.compute_dtype == torch.bfloat16
+            kind = "sgan" if module is sgan_trainer else "vae"
+            out = f"OUTPUT_BLOCK/synthset/{kind}_directional_b.pkl"
+            records = read_log(out + ".log")
+            assert np.isfinite(records["train-epoch"][0]["loss"])
+            assert np.isfinite(records["val-epoch"][0]["loss"])
+            leaves = trainer.leaves if kind == "vae" else trainer.g_leaves + trainer.d_leaves
+            assert all(leaf.dtype == torch.float32 for leaf in leaves)  # f32 masters
+            assert ckpt.load_predictor(out).model.compute_dtype is None
+        return
     for module in (sgan_trainer, vae_trainer):
         with pytest.raises(NotImplementedError, match=match):
             module.main(argv=[*TINY, *flags])

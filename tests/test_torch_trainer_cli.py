@@ -92,14 +92,15 @@ def test_cli_directional_with_every_training_option(data_tree):
     assert all(leaf.device.type == "cpu" for leaf in trainer.leaves)
 
 
-# the --goals, social and attentionmlp cases were refusals until their paths
-# were ported; they keep their ids and now train.  The ids of the others keep
-# the ROADMAP item numbers of the time they were written.
+# the --goals, social, attentionmlp, --obs_dropout, --bf16 and --remat cases
+# were refusals until their paths were ported; they keep their ids and now
+# train.  The ids of the others keep the ROADMAP item numbers of the time
+# they were written.
 @pytest.mark.parametrize("flags,match", [
     pytest.param(["--goals"], None, id="flags0-item 2"),
-    pytest.param(["--obs_dropout"], "item 9", id="flags1-item 11"),
-    pytest.param(["--bf16"], "item 5", id="flags2-item 7"),
-    pytest.param(["--remat"], "item 5", id="flags3-item 7"),
+    pytest.param(["--obs_dropout"], None, id="flags1-item 11"),
+    pytest.param(["--bf16", "--type", "directional", "--n", "4"], None, id="flags2-item 7"),
+    pytest.param(["--remat"], None, id="flags3-item 7"),
     pytest.param(["--dp", "2"], "item 8", id="flags4-item 10"),
     (["--orbax"], "Do not port"),
     pytest.param(["--type", "social", "--n", "4"], None, id="flags6-item 2"),
@@ -111,9 +112,16 @@ def test_cli_refuses_unported_flags(data_tree, flags, match):
         trainer = _train("--epochs", "1", "-o", "x", *flags)
         prefix = "lstm_goals" if "--goals" in flags else "lstm"
         kind = flags[flags.index("--type") + 1] if "--type" in flags else "vanilla"
-        records = read_log(f"OUTPUT_BLOCK/synthset/{prefix}_{kind}_x.pkl.log")
+        out = f"OUTPUT_BLOCK/synthset/{prefix}_{kind}_x.pkl"
+        records = read_log(out + ".log")
         assert np.isfinite(records["train-epoch"][0]["loss"])
+        assert np.isfinite([records["val-epoch"][0][k] for k in ("loss", "test_loss")]).all()
         assert trainer.model.goal_flag == ("--goals" in flags)
+        assert trainer.obs_dropout == ("--obs_dropout" in flags)
+        assert trainer.model.remat == ("--remat" in flags)
+        assert trainer.model.compute_dtype == (torch.bfloat16 if "--bf16" in flags else None)
+        assert all(leaf.dtype == torch.float32 for leaf in trainer.leaves)  # f32 masters
+        assert ckpt.load_predictor(out).model.compute_dtype is None  # saved for f32 serving
         return
     with pytest.raises(NotImplementedError, match=match):
         _train("--epochs", "1", "-o", "x", *flags)
@@ -158,8 +166,14 @@ def test_jax_state_loads_without_optax(data_tree):
     got = trainer.params["decoder"]["w_hh"]
     assert got.dtype == torch.from_numpy(state["params"]["decoder"]["w_hh"]).dtype  # as stored
     assert not torch.equal(got.detach(), torch.from_numpy(state["params"]["decoder"]["w_hh"]))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        _train("--epochs", "2", "--type", "vanilla", "-o", "p1", "--load-full-state", jstate)
+    # --load-full-state resumes the JAX run: its Adam moments and step, then
+    # epoch 2 (the JAX sidecar's optax state, converted)
+    resumed = _train("--epochs", "2", "--type", "vanilla", "-o", "p1", "--load-full-state",
+                     jstate)
+    assert [r["epoch"] for r in read_log("OUTPUT_BLOCK/synthset/lstm_vanilla_p1.pkl.log")
+            ["train-epoch"]] == [1, 2]
+    steps = {float(st["step"]) for st in resumed.optimizer.state.values()}
+    assert steps == {2.0 * 2}  # 2 batches an epoch, 2 epochs
 
 
 def test_merge_params_nonstrict_matches_jax():

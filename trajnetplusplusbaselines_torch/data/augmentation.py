@@ -1,9 +1,11 @@
 """Host-side scene normalization.
 
 Copy of what the port uses of ``trajnetplusplusbaselines_tpu/data/
-augmentation.py``: centring and rotating a scene and its inverse, and
-dropping distant tracks, on the ``[T, num_tracks, 2]`` NaN-padded arrays
-of ``Reader.paths_to_xy``.
+augmentation.py``: centring and rotating a scene and its inverse, dropping
+distant tracks, and the trainers' host-side augmentation (a random rotation
+and observation noise, drawn from a numpy generator in the JAX package's
+order), on the ``[T, num_tracks, 2]`` NaN-padded arrays of
+``Reader.paths_to_xy``.
 """
 
 import math
@@ -61,3 +63,26 @@ def drop_distant(xy: np.ndarray, r: float = 6.0) -> Tuple[np.ndarray, np.ndarray
         warnings.simplefilter("ignore", category=RuntimeWarning)
         mask = np.nanmin(distance_2, axis=0) < r ** 2  # all-NaN track -> False
     return xy[:, mask], mask
+
+
+def random_rotation(xy: np.ndarray, goals: Optional[np.ndarray] = None,
+                    rng: Optional[np.random.Generator] = None):
+    """Rotate the whole scene (and its goals) by a uniform random angle."""
+    theta = (rng.uniform if rng is not None else np.random.uniform)(0.0, 2.0 * math.pi)
+    if goals is None:
+        return theta_rotation(xy, theta)
+    return theta_rotation(xy, theta), theta_rotation(goals, theta)
+
+
+def add_noise(observation: np.ndarray, thresh: float = 0.005, obs_length: int = 9,
+              ped: str = "primary", rng: Optional[np.random.Generator] = None) -> np.ndarray:
+    """Uniform noise in +-``thresh`` on the observed frames of the primary or
+    of the neighbours (``ped="neigh"``), in place."""
+    sample = rng.uniform if rng is not None else np.random.uniform
+    if ped == "primary":
+        observation[:obs_length, 0] += sample(-thresh, thresh, observation[:obs_length, 0].shape)
+    elif ped == "neigh":
+        observation[:obs_length, 1:] += sample(-thresh, thresh, observation[:obs_length, 1:].shape)
+    else:
+        raise ValueError(f"unknown ped type {ped!r}")
+    return observation

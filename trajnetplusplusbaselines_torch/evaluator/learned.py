@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..data import Reader, augmentation, batching
+from ..models.lstm import to_numpy
 from ..models.sgan import SGAN
 from ..models.vae import VAE
 from ..utils.convert import params_to
@@ -85,7 +86,9 @@ class BatchedPredictor:
         obs_length = args.obs_length
         normalize = getattr(args, "normalize_scene", False)
         if self._device_params is None:
-            self._device_params = params_to(self.predictor.params, self.device)
+            # in the model's compute dtype (a bf16 model serves in bf16)
+            self._device_params = params_to(self.predictor.params, self.device,
+                                            getattr(self.predictor.model, "compute_dtype", None))
 
         prepared = []
         for paths, goal in zip(processed_scenes, scene_goals):
@@ -116,7 +119,7 @@ class BatchedPredictor:
             pred, valid = self.rollout(
                 *(torch.from_numpy(x).to(self.device)
                   for x in (packed.xy, packed.mask, packed.goals, slot)), n_predict)
-            out = batching.mask_to_nan(pred.cpu().numpy(), valid.cpu().numpy())  # [K, T', S, A, 2]
+            out = batching.mask_to_nan(to_numpy(pred), valid.cpu().numpy())  # [K, T', S, A, 2]
 
             for s, i in enumerate(chunk):
                 _, _, rotation, center, n_agents = prepared[i]

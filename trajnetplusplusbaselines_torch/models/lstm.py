@@ -39,6 +39,11 @@ from whether autograd records) once per rollout, before any launch:
   discriminator's are when it scores the generator's rollout in a generator
   step): the pool and ``lstm_step_plain`` in PyTorch on either device.
 
+The route also follows the compute dtype (``with_dtype``): the fused step
+is an f32 kernel, so a model that computes in bf16 takes ``"grid"`` for
+its directional grid, whose grid stage then runs in bf16 (the grid stage
+has a bf16 instantiation), or ``"plain"``.
+
 This is routing by configuration, not a fallback: on the card a kernel that
 fails to build or launch raises.  On the CPU the wrappers run their plain
 versions, so every route computes the same function there; the launch
@@ -48,12 +53,27 @@ choice: serving and validation call ``forward`` under ``torch.no_grad()``.
 The encoder pools per step: the JAX package's observation-phase fold is an
 exact regrouping of the same per-step values (``tests/test_static_pool.py``)
 made for the TPU.
+
+Compute dtype and remat, as the JAX package's ``with_dtype`` and ``remat``:
+``compute_dtype`` (None or ``torch.bfloat16``) is the dtype the trainers
+cast the params to inside the differentiated loss
+(``trainers/common.cast_compute``) and the predictors cast them to for
+serving; the positions, goals, carry and pool state follow the params'
+dtype (``place_inputs``, ``init_carry``).  ``remat`` wraps each encoder and
+decoder step in ``torch.utils.checkpoint`` (non-reentrant) where autograd
+records: the step's activations are recomputed in the backward instead of
+kept, values and gradients unchanged.  ``encode`` and ``decode`` take the
+step to call (``step=``): the seed-ensemble trainer gives them the step
+vmapped over its members (``trainers/ensemble.py``), so the rollout loop
+stays outside the vmap.  The decoder's primary lane is indexed from the
+right (``[..., 0, :]``), so the loop takes a leading member axis.
 """
 
 from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..data import Reader, augmentation, batching
 from ..ops.core import init_lstm_cell
@@ -70,6 +90,7 @@ from ..ops.cuda.fused_step import (
 )
 from ..ops.embeddings import init_hidden2normal, init_input_embedding, input_embedding
 from ..ops.pooling.grid import GridBasedPooling
+from ..utils.convert import params_to
 
 
 class StepCarry(NamedTuple):
@@ -107,6 +128,13 @@ class LSTM:
         goal_rep = self.goal_dim if goal_flag else 0
         pooling_dim = pool.out_dim if (pool is not None and pool_to_input) else 0
         self.input_dim = embedding_dim + goal_rep + pooling_dim
+        self.compute_dtype: Optional[torch.dtype] = None  # None: the params' own dtype
+        self.remat = False
+
+    def with_dtype(self, dtype: Optional[torch.dtype]) -> "LSTM":
+        """Compute in ``dtype`` (None: the params' dtype); returns self."""
+        self.compute_dtype = dtype
+        return self
 
     # --------------------------------------------------------------- routing
     @property
@@ -130,14 +158,16 @@ class LSTM:
         return (isinstance(pool, GridBasedPooling) and pool.type_ == "directional"
                 and pool.n * pool.pool_size <= GRID_MAX_N)
 
-    def route(self, records: bool, positions_record: bool = False) -> str:
+    def route(self, records: bool, positions_record: bool = False,
+              dtype: torch.dtype = torch.float32) -> str:
         """The routing predicate: ``"fused"`` where the fused step computes
-        the step and autograd does not record (``records``), else ``"grid"``
-        where the grid stage makes the grid and the positions carry no
-        gradient (``positions_record``: a discriminator scoring a generator's
+        the step, autograd does not record (``records``) and the step does
+        not compute in bf16 (``dtype``), else ``"grid"`` where the grid stage
+        makes the grid and the positions carry no gradient
+        (``positions_record``: a discriminator scoring a generator's
         rollout), else ``"plain"`` (the module's docstring gives each
         route)."""
-        if self.fused and not records:
+        if self.fused and not records and dtype != torch.bfloat16:
             return "fused"
         return "grid" if self.grid_stage and not positions_record else "plain"
 
@@ -196,7 +226,8 @@ class LSTM:
         None decides it here.  weights: ``step_weights(params, cell_name,
         route)``, made once per rollout by ``forward``; None makes them here."""
         if route is None:
-            route = self.route(autograd_records(carry.h, carry.c, *_leaves(params)))
+            route = self.route(autograd_records(carry.h, carry.c, *_leaves(params)),
+                               dtype=carry.h.dtype)
         if weights is None:
             weights = self.step_weights(params, cell_name, route)
         pool = self.pool
@@ -225,18 +256,32 @@ class LSTM:
                                              carry.h, carry.c, *inputs, h_in=h_in)
         return StepCarry(h, c, pool_state), normal, mask
 
+    def step_fn(self, params: Dict):
+        """``step`` as ``encode`` and ``decode`` call it by default: under
+        ``remat``, and where autograd records on ``params``, each call is
+        checkpointed."""
+        if not (self.remat and autograd_records(*_leaves(params))):
+            return self.step
+
+        def remat_step(*args, **kwargs):
+            return checkpoint(self.step, *args, use_reentrant=False, **kwargs)
+
+        return remat_step
+
     # --------------------------------------------------------------- encoder
     def encode(self, params, carry, observed, observed_mask, weights=None, *, goals=None,
-               slot_mask=None, route=None):
-        """Run the encoder over the observation transitions.
+               slot_mask=None, route=None, step=None):
+        """Run the encoder over the observation transitions.  ``step``: the
+        step function, ``step_fn(params)`` by default.
 
         Returns (carry, normals, masks, positions), each a list of T-1
         per-step tensors."""
+        step = step or self.step_fn(params)
         normals: List[torch.Tensor] = []
         masks: List[torch.Tensor] = []
         positions: List[torch.Tensor] = []
         for t in range(observed.shape[0] - 1):
-            carry, normal, mask = self.step(
+            carry, normal, mask = step(
                 params, "encoder", carry, observed[t], observed[t + 1],
                 observed_mask[t], observed_mask[t + 1], weights, goals=goals,
                 slot_mask=slot_mask, route=route,
@@ -249,7 +294,7 @@ class LSTM:
     # --------------------------------------------------------------- decoder
     def decode(self, params, carry, pos_a, valid_a, pos_b, valid_b, n_steps: int,
                weights=None, truth=None, truth_mask=None, *, goals=None, slot_mask=None,
-               route=None):
+               route=None, step=None):
         """Run the decoder for n_steps from the last two positions.
 
         truth / truth_mask: [n_steps + 1, S, A, ...] ground-truth chain
@@ -257,8 +302,11 @@ class LSTM:
         autoregression.  The primary (agent 0) always reads the model's own
         detached position, and in autoregression every agent does.
 
+        ``step``: the step function, ``step_fn(params)`` by default.
+
         Returns (carry, normals, masks, positions), each a list of n_steps
         per-step tensors."""
+        step = step or self.step_fn(params)
         normals, masks, positions = [], [], []
         for k in range(n_steps):
             if truth is not None:
@@ -266,9 +314,8 @@ class LSTM:
                 obs2, p2 = _set_primary(truth[k + 1], truth_mask[k + 1], pos_b, valid_b)
             else:
                 obs1, p1, obs2, p2 = pos_a.detach(), valid_a, pos_b.detach(), valid_b
-            carry, normal, mask = self.step(params, "decoder", carry, obs1, obs2, p1, p2,
-                                            weights, goals=goals, slot_mask=slot_mask,
-                                            route=route)
+            carry, normal, mask = step(params, "decoder", carry, obs1, obs2, p1, p2,
+                                       weights, goals=goals, slot_mask=slot_mask, route=route)
             new_pos = (obs2 + normal[..., :2]) * mask[..., None]
             normals.append(normal)
             masks.append(mask)
@@ -318,7 +365,8 @@ class LSTM:
         launch (``route``) from the params and, where they carry a gradient,
         the ``positions`` the rollout reads."""
         records = autograd_records(*_leaves(params), *positions)
-        route = self.route(records, positions_record=autograd_records(*positions))
+        route = self.route(records, positions_record=autograd_records(*positions),
+                           dtype=params["encoder"]["w_ih"].dtype)
         return route, {cell: self.step_weights(params, cell, route) for cell in cells}
 
     def start_decoder(self, carry: StepCarry, x: "Inputs", enc_positions, enc_masks
@@ -331,13 +379,13 @@ class LSTM:
         free steps."""
         observed, observed_mask = x.observed, x.observed_mask
         if observed.shape[0] == 2:
-            prim_a, prim_valid_a = observed[-1][:, 0], observed_mask[-1][:, 0]
+            prim_a, prim_valid_a = observed[-1][..., 0, :], observed_mask[-1][..., 0]
         else:
-            prim_a, prim_valid_a = enc_positions[-2][:, 0], enc_masks[-2][:, 0]
+            prim_a, prim_valid_a = enc_positions[-2][..., 0, :], enc_masks[-2][..., 0]
         pos_a = observed[-1].clone()
-        pos_a[:, 0] = prim_a
+        pos_a[..., 0, :] = prim_a
         valid_a = observed_mask[-1].clone()
-        valid_a[:, 0] = prim_valid_a
+        valid_a[..., 0] = prim_valid_a
 
         truth = truth_mask = None
         n_steps = (x.n_predict or 0) - 1
@@ -348,11 +396,11 @@ class LSTM:
         return DecoderStart(carry, pos_a, valid_a, enc_positions[-1], enc_masks[-1], n_steps,
                             truth, truth_mask, x.goals, x.slot_mask)
 
-    def decode_from(self, params, start: "DecoderStart", weights, route: str):
+    def decode_from(self, params, start: "DecoderStart", weights, route: str, step=None):
         """``decode`` from ``start``; returns (carry, normals, masks, positions)."""
         return self.decode(params, start.carry, start.pos_a, start.valid_a, start.pos_b,
                            start.valid_b, start.n_steps, weights, start.truth, start.truth_mask,
-                           goals=start.goals, slot_mask=start.slot_mask, route=route)
+                           goals=start.goals, slot_mask=start.slot_mask, route=route, step=step)
 
     def forward(self, params: Dict, observed, observed_mask, prediction_truth=None,
                 prediction_truth_mask=None, n_predict: Optional[int] = None, *,
@@ -450,12 +498,13 @@ def join_modes(enc: List[torch.Tensor], dec: List[torch.Tensor], modes: int) -> 
 
 
 def _set_primary(gt_xy, gt_mask, own_xy, own_mask):
-    """Ground truth at one frame ``[S, A, ...]`` with the primary's lane
-    replaced by the model's own detached position and its validity."""
+    """Ground truth at one frame (positions ``[..., S, A, 2]``, masks
+    ``[..., S, A]``) with the primary's lane replaced by the model's own
+    detached position and its validity."""
     xy = gt_xy.clone()
-    xy[:, 0] = own_xy[:, 0].detach()
+    xy[..., 0, :] = own_xy[..., 0, :].detach()
     mask = gt_mask.clone()
-    mask[:, 0] = own_mask[:, 0]
+    mask[..., 0] = own_mask[..., 0]
     return xy, mask
 
 
@@ -483,6 +532,18 @@ def scene_batch(paths, scene_goal, obs_length: int, start_length: int, args, goa
         return augmentation.inverse_scene(out, rotation, center) if normalize else out
 
     return (packed.xy, packed.mask, goals, slot_mask), finish
+
+
+def compute_params(model, params: Dict) -> Dict:
+    """``params`` in ``model.compute_dtype`` (cast), as serving runs them; as
+    they are where it is None."""
+    dtype = getattr(model, "compute_dtype", None)
+    return params if dtype is None else params_to(params, dtype=dtype)
+
+
+def to_numpy(x: torch.Tensor) -> np.ndarray:
+    """``x`` on the host as numpy, bf16 as float32 (numpy has no bf16)."""
+    return (x.float() if x.dtype == torch.bfloat16 else x).cpu().numpy()
 
 
 def mode_outputs(out: np.ndarray, n_predict: int) -> Dict:
@@ -519,10 +580,10 @@ class LSTMPredictor:
             paths, scene_goal, obs_length, start_length, args, self.model.goal_flag)
         with torch.no_grad():
             _, pred, valid = self.model.forward(
-                self.params, torch.from_numpy(xy), torch.from_numpy(mask),
-                n_predict=n_predict, goals=torch.from_numpy(goals),
+                compute_params(self.model, self.params), torch.from_numpy(xy),
+                torch.from_numpy(mask), n_predict=n_predict, goals=torch.from_numpy(goals),
                 slot_mask=torch.from_numpy(slot_mask),
             )
-        output = finish(pred.cpu().numpy(), valid.cpu().numpy())  # [T', n, 2]
+        output = finish(to_numpy(pred), valid.cpu().numpy())  # [T', n, 2]
         return {mode: [output[-n_predict:, 0], output[-n_predict:, 1:]]
                 for mode in range(modes)}

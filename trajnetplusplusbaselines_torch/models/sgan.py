@@ -33,7 +33,7 @@ import torch
 
 from ..ops.core import init_lstm_cell, init_mlp, mlp
 from ..ops.embeddings import init_hidden2normal, init_input_embedding
-from .lstm import LSTM, join_modes, mode_outputs, scene_batch
+from .lstm import LSTM, compute_params, join_modes, mode_outputs, scene_batch, to_numpy
 
 
 def get_noise(shape, noise_type: str, rng: Optional[torch.Generator] = None,
@@ -173,6 +173,16 @@ class SGAN:
     def goal_flag(self) -> bool:
         return self.generator.goal_flag
 
+    @property
+    def compute_dtype(self):
+        """The generator's compute dtype, which ``with_dtype`` gives both."""
+        return self.generator.compute_dtype
+
+    def with_dtype(self, dtype) -> "SGAN":
+        self.generator.with_dtype(dtype)
+        self.discriminator.with_dtype(dtype)
+        return self
+
     def init_params(self, generator: torch.Generator, device=None,
                     dtype=torch.float32) -> Dict:
         return {"generator": self.generator.init_params(generator, device, dtype),
@@ -238,7 +248,8 @@ class SGANPredictor:
             paths, scene_goal, obs_length, start_length, args, self.model.goal_flag)
         with torch.no_grad():
             _, pred, valid = self.model.generate(
-                self.params, torch.from_numpy(xy), torch.from_numpy(mask), n_predict=n_predict,
+                compute_params(self.model, self.params), torch.from_numpy(xy),
+                torch.from_numpy(mask), n_predict=n_predict,
                 modes=modes, noise=noise, rng=torch.Generator().manual_seed(seed),
                 goals=torch.from_numpy(goals), slot_mask=torch.from_numpy(slot_mask))
-        return mode_outputs(finish(pred.cpu().numpy(), valid.cpu().numpy()), n_predict)
+        return mode_outputs(finish(to_numpy(pred), valid.cpu().numpy()), n_predict)

@@ -27,7 +27,7 @@ from typing import Dict, Optional
 import torch
 
 from ..ops.core import init_lstm_cell, init_linear, linear
-from .lstm import LSTM, join_modes, mode_outputs, scene_batch
+from .lstm import LSTM, compute_params, join_modes, mode_outputs, scene_batch, to_numpy
 
 
 class VAE(LSTM):
@@ -154,7 +154,8 @@ class VAEPredictor:
             paths, scene_goal, obs_length, start_length, args, self.model.goal_flag)
         with torch.no_grad():
             _, pred, valid, _, _ = self.model.forward(
-                self.params, torch.from_numpy(xy), torch.from_numpy(mask), n_predict=n_predict,
+                compute_params(self.model, self.params), torch.from_numpy(xy),
+                torch.from_numpy(mask), n_predict=n_predict,
                 training=False, modes=modes, eps=eps, rng=torch.Generator().manual_seed(seed),
                 goals=torch.from_numpy(goals), slot_mask=torch.from_numpy(slot_mask))
-        return mode_outputs(finish(pred.cpu().numpy(), valid.cpu().numpy()), n_predict)
+        return mode_outputs(finish(to_numpy(pred), valid.cpu().numpy()), n_predict)

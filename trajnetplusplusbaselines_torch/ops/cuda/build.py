@@ -40,6 +40,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "dlstm_directional_grid": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _F, _P],
+    "dlstm_directional_grid_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _F, _P],
     "dlstm_fused_step": [_P] * 17 + [_I, _I, _F, _F, _P],
     "dlstm_kernel_dims": [_P],
 }

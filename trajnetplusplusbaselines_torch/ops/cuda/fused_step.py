@@ -40,7 +40,13 @@ Layout is scene-major ``[S, A, F]`` contiguous, as in ``models/lstm.py``.
   into TF32 high and low parts, gate columns reordered; cached on the
   source tensors' identity and version by ``packed_weights``); the wrapper
   takes the ``KernelWeights`` it returns without checking again.
-- Each wrapper counts its kernel launches in its ``launches`` attribute.
+- Each wrapper counts its kernel launches in its ``launches`` attribute;
+  the grid stage's bf16 instantiation in ``directional_grid.bf16_launches``.
+- The grid stage takes f32 or bf16 positions (a model that computes in
+  bf16); in bf16 every op rounds to bf16 as one bf16 op of PyTorch does.
+  It is the custom op ``trajnet::directional_grid``, whose vmap rule folds
+  a batched call's members into the scene axis of one launch (the
+  seed-ensemble trainer's step runs under ``torch.func.vmap``).
 """
 
 import functools
@@ -143,23 +149,26 @@ def fused_dlstm_step_plain(obs1, obs2, present1, present2, h, c, weights: Mappin
 
 
 # ------------------------------------------------------------------ wrappers
-def _check_inputs(obs1, obs2, present1, present2, *state):
-    """Raise on anything the kernel does not take."""
+def _check_inputs(obs1, obs2, present1, present2, *state, dtype=torch.float32):
+    """Raise on anything the kernel does not take: positions of ``dtype``,
+    state float32."""
     s, a = obs2.shape[:2] if obs2.dim() == 3 else (0, 0)
     if s * a == 0:
         raise ValueError(f"positions must be [S, A, 2] with S, A >= 1, got {tuple(obs2.shape)}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the grid stage takes float32 or bfloat16 positions, got {dtype}")
     device = obs2.device
-    for name, x, shape, dtype in (
-        ("obs1", obs1, (s, a, 2), torch.float32),
-        ("obs2", obs2, (s, a, 2), torch.float32),
+    for name, x, shape, want in (
+        ("obs1", obs1, (s, a, 2), dtype),
+        ("obs2", obs2, (s, a, 2), dtype),
         ("present1", present1, (s, a), torch.bool),
         ("present2", present2, (s, a), torch.bool),
         *((f"state{i}", x, (s, a, x.shape[-1]), torch.float32) for i, x in enumerate(state)),
     ):
         if x.device != device:
             raise ValueError(f"{name} is on {x.device}, expected {device}")
-        if x.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+        if x.dtype != want:
+            raise TypeError(f"{name} must be {want}, got {x.dtype}")
         if tuple(x.shape) != shape:
             raise ValueError(f"{name} must have shape {shape}, got {tuple(x.shape)}")
         if not x.is_contiguous():
@@ -317,34 +326,87 @@ def directional_grid(obs1, obs2, present1, present2, *, n=12, cell_side=0.6,
                      constant=0.0, front=False) -> torch.Tensor:
     """The flattened directional grid ``[S, A, 2*n*n]`` of side ``n`` (1 to
     ``GRID_MAX_N``), with the agent at the grid's centre or, with ``front``,
-    on its edge: the kernel's grid stage on the card, the plain version on
-    the CPU.  It has no gradient, so positions that require grad raise."""
+    on its edge, in the positions' dtype (float32, or bfloat16 with every op
+    rounded to bf16): the kernel's grid stage on the card, the plain version
+    on the CPU.  It goes through the custom op ``trajnet::directional_grid``,
+    so that under ``torch.func.vmap`` the members of a batched call fold into
+    the scene axis of one call (``_grid_vmap``).  It has no gradient, so
+    positions that require grad raise."""
     if obs1.requires_grad or obs2.requires_grad:
         raise ValueError("directional_grid has no gradient: pass detached positions")
-    if obs2.device.type == "cpu":
-        return directional_grid_plain(obs1, obs2, present1, present2, n=n,
-                                      cell_side=cell_side, constant=constant, front=front)
-    if obs2.device.type != "cuda":
+    if obs2.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {obs2.device}")
+    return _grid_op(obs1, obs2, present1, present2, int(n), float(cell_side), float(constant),
+                    bool(front))
+
+
+directional_grid.launches = 0
+directional_grid.bf16_launches = 0
+
+
+@torch.library.custom_op("trajnet::directional_grid", mutates_args=())
+def _grid_op(obs1: torch.Tensor, obs2: torch.Tensor, present1: torch.Tensor,
+             present2: torch.Tensor, n: int, cell_side: float, constant: float,
+             front: bool) -> torch.Tensor:
+    """``directional_grid`` as a custom op; on the CPU, the plain version."""
+    return directional_grid_plain(obs1, obs2, present1, present2, n=n, cell_side=cell_side,
+                                  constant=constant, front=front)
+
+
+@_grid_op.register_kernel("cuda")
+def _grid_kernel(obs1, obs2, present1, present2, n, cell_side, constant, front):
+    """The grid stage's launch on the card; each launch adds one to
+    ``directional_grid.launches`` (f32) or ``directional_grid.bf16_launches``
+    (the bf16 instantiation)."""
     from . import build
 
-    s, a = _check_inputs(obs1, obs2, present1, present2)
+    s, a = _check_inputs(obs1, obs2, present1, present2, dtype=obs2.dtype)
     grid_max_n = _library_dims()[4]
     if not 1 <= n <= grid_max_n:
         raise ValueError(f"the grid stage takes 1 <= n <= {grid_max_n}, got n={n}")
-    out = torch.empty((s, a, 2 * n * n), dtype=torch.float32, device=obs2.device)
+    lib = build.load_library()
+    entry = lib.dlstm_directional_grid
+    if obs2.dtype == torch.bfloat16:
+        # the kernel takes them as the plain version's bf16 ops see them
+        entry = lib.dlstm_directional_grid_bf16
+        cell_side, constant = (float(torch.tensor(x, dtype=torch.bfloat16))
+                               for x in (cell_side, constant))
+    out = torch.empty((s, a, 2 * n * n), dtype=obs2.dtype, device=obs2.device)
     with torch.cuda.device(obs2.device):
-        status = build.load_library().dlstm_directional_grid(
+        status = entry(
             obs1.data_ptr(), obs2.data_ptr(), present1.data_ptr(), present2.data_ptr(),
             out.data_ptr(), s, a, n, float(cell_side), int(front), float(constant),
             torch.cuda.current_stream().cuda_stream,
         )
     build.check(status, "directional_grid")
-    directional_grid.launches += 1
+    if obs2.dtype == torch.bfloat16:
+        directional_grid.bf16_launches += 1
+    else:
+        directional_grid.launches += 1
     return out
 
 
-directional_grid.launches = 0
+@_grid_op.register_fake
+def _grid_fake(obs1, obs2, present1, present2, n, cell_side, constant, front):
+    return obs2.new_empty((*obs2.shape[:2], 2 * n * n))
+
+
+def _grid_vmap(info, in_dims, obs1, obs2, present1, present2, n, cell_side, constant, front):
+    """The batching rule: members ``[B, S, A, ...]`` fold into the scene axis
+    of one call ``[B * S, A, ...]``, whose grid is reshaped back.  Exact, since
+    the grid of a scene reads only that scene's rows."""
+    size = info.batch_size
+
+    def fold(x, dim):
+        x = x.movedim(dim, 0) if dim is not None else x.expand(size, *x.shape)
+        return x.reshape(size * x.shape[1], *x.shape[2:]).contiguous()
+
+    folded = [fold(x, dim) for x, dim in zip((obs1, obs2, present1, present2), in_dims[:4])]
+    out = _grid_op(*folded, n, cell_side, constant, front)
+    return out.reshape(size, -1, *out.shape[1:]), 0
+
+
+_grid_op.register_vmap(_grid_vmap)
 
 
 def fused_dlstm_step(obs1, obs2, present1, present2, h, c, weights: Mapping, *, n=12,

@@ -15,16 +15,29 @@ Port of the host parts of ``trajnetplusplusbaselines_tpu/trainers/common.py``
   ``torch.Generator``, yielding each batch's goals and slot mask;
 - ``EpochLoop``: what every trainer's epochs share (resident datasets,
   their batches, the epoch loop with checkpoints, the train log records);
+- ``SceneDataset.epoch_batches`` / ``group_batches`` / ``packed_batch``:
+  the chunked host path of ``--obs_dropout``, batches packed on the host
+  with rotation and noise drawn from the trainer's numpy generator in the
+  JAX package's order of draws (the permutation, then per scene its
+  rotation and its noise), then grouped by shape as JAX groups them;
 - ``make_optimizer`` / ``clip_by_global_norm`` / ``set_lr``: optax's
   ``clip_by_global_norm -> add_decayed_weights -> scale_by_adam ->
   scale_by_learning_rate`` as a global-norm clip written to optax's formula
-  followed by ``torch.optim.Adam`` with coupled weight decay;
+  (per member for the ensemble's stacked leaves) followed by
+  ``torch.optim.Adam`` with coupled weight decay;
+- ``cast_compute`` / ``outputs_f32`` / ``f32_model``: mixed precision as
+  the JAX package's ``--bf16`` runs it, f32 masters and optimizer state,
+  the forward and backward in the model's compute dtype, losses in f32, and
+  predictor pickles saved with compute dtype None;
 - ``step_lr`` and the JSON logging that ``tools/plot_log.read_log`` reads.
 
-The lax-scan chunking, the compile cache and the mesh helpers exist only for
-the TPU toolchain and are not ported.
+The lax-scan chunking (``chunk_sizes_for`` splits a group into scan chunks,
+which changes nothing when one step is applied per batch in order), the
+compile cache and the mesh helpers exist only for the TPU toolchain and are
+not ported.
 """
 
+import copy
 import json
 import logging
 import socket
@@ -34,6 +47,7 @@ from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 from ..data import Reader, augmentation, batching
 
@@ -62,6 +76,39 @@ class SceneDataset:
 
     def __len__(self):
         return len(self.xys)
+
+    def epoch_batches(self, batch_size: int, rng: np.random.Generator, augment: bool = False,
+                      augment_noise: bool = False,
+                      shuffle: bool = True) -> Iterator[batching.PackedScenes]:
+        """Yield each batch of an epoch packed on the host
+        (``batching.pack_scenes``, padded to ``batch_size`` scenes), in the
+        order of ``rng.permutation``, each scene and its goals rotated
+        (``augment``) and its neighbours' observed frames noised
+        (``augment_noise``, +-``NOISE_THRESH``), drawn from ``rng`` as it is
+        consumed, in the JAX package's order."""
+        order = rng.permutation(len(self.xys)) if shuffle else np.arange(len(self.xys))
+        for start in range(0, len(order), batch_size):
+            xs, gs = [], []
+            for i in order[start:start + batch_size]:
+                xy, goal = self.xys[i], self.goals[i]
+                if augment:
+                    xy, goal = augmentation.random_rotation(xy, goals=goal, rng=rng)
+                if augment_noise:
+                    xy = augmentation.add_noise(xy.copy(), thresh=NOISE_THRESH, ped="neigh",
+                                                rng=rng)
+                xs.append(xy)
+                gs.append(goal)
+            yield batching.pack_scenes(xs, gs, pad_scenes_to=batch_size)
+
+
+def group_batches(items, key_fn) -> Dict:
+    """Items grouped by ``key_fn`` (a batch's shape), groups in the order of
+    their first item, items in their order: the JAX package's visit order of
+    the chunked host path."""
+    groups: Dict = {}
+    for item in items:
+        groups.setdefault(key_fn(item), []).append(item)
+    return groups
 
 
 class ResidentDataset:
@@ -163,6 +210,14 @@ def bucket_batches(data: Dict[str, torch.Tensor], idx: np.ndarray, valid: np.nda
                     slot_all[i] & v[:, None])
 
 
+def packed_batch(packed: batching.PackedScenes, device) -> Batch:
+    """A host-packed batch (``SceneDataset.epoch_batches``) as a ``Batch`` on
+    ``device``: padded scenes have no real slot and are switched off."""
+    slot = np.arange(packed.xy.shape[2])[None] < packed.num_agents[:, None]
+    return Batch(*(torch.from_numpy(x).to(device) for x in (
+        packed.xy, packed.mask, packed.num_agents > 0, packed.goals, slot)))
+
+
 class EpochLoop:
     """What the trainers' epochs share: each dataset made resident on the
     trainer's ``device`` once, its batches (augmented from ``generator``),
@@ -238,27 +293,66 @@ def make_optimizer(leaves: Sequence[torch.Tensor], lr: float = 1e-3,
     return torch.optim.Adam(list(leaves), lr=lr, weight_decay=weight_decay)
 
 
-def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float,
+                        members: bool = False) -> List[torch.Tensor]:
     """optax's ``clip_by_global_norm``: every gradient becomes
     ``(g / norm) * max_norm`` where the global norm is at least ``max_norm``.
     (``torch.nn.utils.clip_grad_norm_`` divides by ``norm + 1e-6`` instead.)
-    Decided on the device, with no host sync.  Returns new tensors: autograd
-    may hand one tensor to two leaves (``b_ih`` and ``b_hh`` reach the loss
-    through their sum), so scaling in place would scale it twice."""
-    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-    keep = norm < max_norm
-    return [torch.where(keep, g, (g / norm) * max_norm) for g in grads]
+    With ``members``, the leaves are stacked ``[E, ...]`` and each member
+    has its own norm, as if clipped alone.  Decided on the device, with no
+    host sync.  Returns new tensors: autograd may hand one tensor to two
+    leaves (``b_ih`` and ``b_hh`` reach the loss through their sum), so
+    scaling in place would scale it twice."""
+    if members:
+        norm = torch.sqrt(sum(torch.sum((g * g).flatten(1), dim=1) for g in grads))  # [E]
+        norm = [norm.reshape(-1, *[1] * (g.dim() - 1)) for g in grads]
+    else:
+        norm = [torch.sqrt(sum(torch.sum(g * g) for g in grads))] * len(grads)
+    return [torch.where(n < max_norm, g, (g / n) * max_norm) for g, n in zip(grads, norm)]
 
 
 def optimizer_step(optimizer: torch.optim.Optimizer, leaves: Sequence[torch.Tensor],
-                   grads: Sequence[torch.Tensor], clip_grad: Optional[float] = None) -> None:
+                   grads: Sequence[torch.Tensor], clip_grad: Optional[float] = None,
+                   members: bool = False) -> None:
     """One step of ``optimizer`` on ``leaves`` with ``grads``, clipped by
-    their global norm first where ``clip_grad`` is set."""
+    their global norm first where ``clip_grad`` is set (per member of
+    stacked leaves with ``members``)."""
     if clip_grad:
-        grads = clip_by_global_norm(grads, clip_grad)
+        grads = clip_by_global_norm(grads, clip_grad, members)
     for leaf, grad in zip(leaves, grads):
         leaf.grad = grad
     optimizer.step()
+
+
+def cast_compute(tree, compute_dtype: Optional[torch.dtype]):
+    """Mixed precision: every floating tensor of ``tree`` (the params) cast
+    to ``compute_dtype``, inside the differentiated loss, so the gradients
+    come back in the masters' dtype; the tree itself where it is None."""
+    if compute_dtype is None:
+        return tree
+    return tree_map(lambda x: x.to(compute_dtype)
+                    if isinstance(x, torch.Tensor) and x.is_floating_point() else x, tree)
+
+
+def outputs_f32(tree, compute_dtype: Optional[torch.dtype]):
+    """The tensors of a forward's outputs in ``compute_dtype`` cast back to
+    float32, so every loss accumulates in full precision; the tree itself
+    where ``compute_dtype`` is None."""
+    if compute_dtype is None:
+        return tree
+    return tree_map(lambda x: x.float()
+                    if isinstance(x, torch.Tensor) and x.dtype == compute_dtype else x, tree)
+
+
+def f32_model(model):
+    """A copy of ``model`` (its generator and discriminator copied too) that
+    computes in its params' dtype: predictor pickles are saved with compute
+    dtype None, as the JAX package saves them, and evaluate in f32."""
+    model = copy.copy(model)
+    for part in ("generator", "discriminator"):
+        if hasattr(model, part):
+            setattr(model, part, copy.copy(getattr(model, part)))
+    return model.with_dtype(None)
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:

@@ -22,10 +22,26 @@ embeddings, other n) launches the grid stage of the fused kernel
 (``ops/cuda/fused_step.directional_grid``) once per recurrence step, 19 times
 per train step, in training and in validation; validation records no
 autograd, so a flagship D-LSTM's teacher-forced pass and free rollout launch
-the whole fused step instead.  The other pools run in PyTorch.
+the whole fused step instead (in f32; in bf16 they take the grid stage).
+The other pools run in PyTorch.
 
-Not ported, and refused with the ROADMAP item that ports them:
-``--obs_dropout``, ``--bf16``, ``--remat``, ``--dp`` / ``--tp`` above 1.
+The JAX trainer's training options:
+
+- ``--bf16``: f32 master params and Adam state; the params cast to bf16
+  inside the differentiated loss (``common.cast_compute``), the positions,
+  carry and pool state with them, the outputs cast back to f32 for the
+  losses (``common.outputs_f32``); a directional grid's grid stage runs in
+  bf16.  Pickles are saved with compute dtype None (``common.f32_model``).
+- ``--remat``: ``LSTM.remat``, each recurrence step checkpointed.
+- ``--obs_dropout``: the chunked host path: batches packed on the host
+  (``SceneDataset.epoch_batches``, augmentation from the numpy generator),
+  one ``start_length`` drawn per batch right after it, the epoch trained in
+  JAX's grouped order (``group_batches`` by scenes, agents and
+  ``start_length``), each ``start_length`` logged; validation starts at 0.
+- ``--load-full-state`` of a JAX sidecar: its optax Adam state converted
+  (``utils/checkpoint.adam_state_from_optax``), resumed from its epoch.
+
+Refused, with the ROADMAP item that ports them: ``--dp`` / ``--tp`` above 1.
 ``--orbax`` is refused for good (ROADMAP, "Do not port").
 
 Usage:
@@ -54,9 +70,14 @@ from .common import (
     SceneDataset,
     adam_state_from_numpy,
     adam_state_to_numpy,
+    cast_compute,
+    f32_model,
+    group_batches,
     log_process_record,
     make_optimizer,
     optimizer_step,
+    outputs_f32,
+    packed_batch,
     param_items,
     set_lr,
     setup_logging,
@@ -73,7 +94,7 @@ class Trainer(EpochLoop):
     def __init__(self, model, params, lr_schedule, criterion="pred", batch_size=8,
                  obs_length=9, pred_length=12, augment=True, save_every=1, start_length=0,
                  augment_noise=False, val_flag=True, col_wt=0.0, col_distance=0.2, seed=42,
-                 clip_grad=None):
+                 clip_grad=None, obs_dropout=False):
         self.model = model
         self.params = params
         self.paths, self.leaves = zip(*param_items(params))
@@ -94,6 +115,7 @@ class Trainer(EpochLoop):
         self.augment_noise = augment_noise
         self.save_every = save_every
         self.start_length = start_length
+        self.obs_dropout = obs_dropout
         self.val_flag = val_flag
         self.col_wt = col_wt
         self.col_distance = col_distance
@@ -101,6 +123,11 @@ class Trainer(EpochLoop):
         self.rng = np.random.default_rng(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
         self._resident = {}
+
+    @property
+    def compute_dtype(self):
+        """The model's compute dtype (``--bf16``), None for its params'."""
+        return self.model.compute_dtype
 
     # ------------------------------------------------------------------ step
     def _loss_from_outputs(self, rel, pred, valid, xy, mask, scene_mask):
@@ -124,28 +151,37 @@ class Trainer(EpochLoop):
                                          self.col_distance)
         return loss * self.batch_size
 
-    def _forward_train(self, params, xy, mask, start_length, goals, slot_mask):
-        return self.model.forward(
-            params, xy[start_length:self.obs_length], mask[start_length:self.obs_length],
-            prediction_truth=xy[self.obs_length:self.seq_length - 1],
-            prediction_truth_mask=mask[self.obs_length:self.seq_length - 1],
-            goals=goals, slot_mask=slot_mask,
-        )
+    def _forward(self, params, xy, mask, start_length, **kwargs):
+        """``LSTM.forward`` of ``xy[start_length:obs_length]`` in the compute
+        dtype, its outputs in f32."""
+        dtype = self.compute_dtype
+        return outputs_f32(self.model.forward(
+            cast_compute(params, dtype), xy[start_length:self.obs_length],
+            mask[start_length:self.obs_length], **kwargs), dtype)
 
-    def loss_and_grads(self, xy, mask, scene_mask, goals=None, slot_mask=None):
+    def _forward_train(self, params, xy, mask, start_length, goals, slot_mask):
+        return self._forward(params, xy, mask, start_length,
+                             prediction_truth=xy[self.obs_length:self.seq_length - 1],
+                             prediction_truth_mask=mask[self.obs_length:self.seq_length - 1],
+                             goals=goals, slot_mask=slot_mask)
+
+    def loss_and_grads(self, xy, mask, scene_mask, goals=None, slot_mask=None,
+                       start_length=None):
         """The teacher-forced loss of one batch and its gradient for every
         leaf (zeros for a leaf the loss does not reach, as in JAX).  goals
-        [S, A, 2] and slot_mask [S, A] as ``LSTM.forward`` takes them."""
-        rel, pred, valid = self._forward_train(self.params, xy, mask, self.start_length,
-                                               goals, slot_mask)
+        [S, A, 2] and slot_mask [S, A] as ``LSTM.forward`` takes them;
+        ``start_length`` (the first observed frame), the trainer's by
+        default."""
+        sl = self.start_length if start_length is None else start_length
+        rel, pred, valid = self._forward_train(self.params, xy, mask, sl, goals, slot_mask)
         loss = self._loss_from_outputs(rel, pred, valid, xy, mask, scene_mask)
         grads = torch.autograd.grad(loss, self.leaves, materialize_grads=True)
         return loss.detach(), grads
 
-    def train_step(self, xy, mask, scene_mask, goals=None, slot_mask=None):
+    def train_step(self, xy, mask, scene_mask, goals=None, slot_mask=None, start_length=None):
         """One optimizer step on one batch (a ``common.Batch``'s fields);
         returns the loss, on the device."""
-        loss, grads = self.loss_and_grads(xy, mask, scene_mask, goals, slot_mask)
+        loss, grads = self.loss_and_grads(xy, mask, scene_mask, goals, slot_mask, start_length)
         optimizer_step(self.optimizer, self.leaves, grads, self.clip_grad)
         return loss
 
@@ -157,7 +193,8 @@ class Trainer(EpochLoop):
             "opt_state_hyper": {"learning_rate": float(self.lr_schedule(max(epoch - 1, 0)))},
             "opt_state": adam_state_to_numpy(self.optimizer, self.paths),
         }
-        ckpt.save_predictor(self.predictor_class(self.model, self.params), filename, state)
+        ckpt.save_predictor(self.predictor_class(f32_model(self.model), self.params), filename,
+                            state)
 
     def get_lr(self, epoch: int) -> float:
         return float(self.lr_schedule(epoch))
@@ -168,30 +205,48 @@ class Trainer(EpochLoop):
         lr = self.get_lr(epoch)
         set_lr(self.optimizer, lr)
 
-        resident = self._get_resident(scenes)
-        t0 = time.time()
-        plan = resident.epoch_plan(self.batch_size, self.rng, shuffle=True)
-        data_time = time.time() - t0
-        losses = [self.train_step(*batch) for batch in
-                  self._batches(resident, plan, self.augment, self.augment_noise)]
+        data_time = 0.0  # host time of the resident path's epoch plan
+        if self.obs_dropout:
+            losses = self._train_obs_dropout(scenes, epoch)
+        else:
+            resident = self._get_resident(scenes)
+            t0 = time.time()
+            plan = resident.epoch_plan(self.batch_size, self.rng, shuffle=True)
+            data_time = time.time() - t0
+            losses = [self.train_step(*batch) for batch in
+                      self._batches(resident, plan, self.augment, self.augment_noise)]
         losses = torch.stack(losses).cpu().numpy() if losses else np.zeros(0)  # sync point
         self.log_train(scenes, epoch, losses, start_time, lr,
                        data_time=round(data_time / max(len(losses), 1), 6))
+
+    def _train_obs_dropout(self, scenes: SceneDataset, epoch: int):
+        """``--obs_dropout``'s epoch: every batch packed on the host, one
+        ``start_length`` in [0, obs_length - 2] drawn after each, then the
+        batches trained grouped by (scenes, agents, start_length), as the
+        JAX trainer visits them.  Returns the losses, on the device."""
+        items = []
+        for packed in scenes.epoch_batches(self.batch_size, self.rng, self.augment,
+                                           self.augment_noise):
+            items.append((packed, int(self.rng.integers(0, self.obs_length - 1))))
+        groups = group_batches(items, lambda it: (*it[0].xy.shape[1:3], it[1]))
+        visited = [item for group in groups.values() for item in group]
+        self.log.info({"type": "obs-dropout", "epoch": epoch,
+                       "start_lengths": [sl for _, sl in visited]})
+        return [self.train_step(*packed_batch(packed, self.device), start_length=sl)
+                for packed, sl in visited]
 
     def val(self, scenes: SceneDataset, epoch: int):
         eval_start = time.time()
         resident = self._get_resident(scenes)
         plan = resident.epoch_plan(self.batch_size, self.rng, shuffle=False)
-        sl = self.start_length
+        sl = 0 if self.obs_dropout else self.start_length
         val_losses, test_losses = [], []
         with torch.no_grad():
             for xy, mask, scene, goals, slot in self._batches(resident, plan):
                 outputs = self._forward_train(self.params, xy, mask, sl, goals, slot)
                 val_losses.append(self._loss_from_outputs(*outputs, xy, mask, scene))
-                outputs = self.model.forward(self.params, xy[sl:self.obs_length],
-                                             mask[sl:self.obs_length],
-                                             n_predict=self.pred_length, goals=goals,
-                                             slot_mask=slot)
+                outputs = self._forward(self.params, xy, mask, sl, n_predict=self.pred_length,
+                                        goals=goals, slot_mask=slot)
                 test_losses.append(self._loss_from_outputs(*outputs, xy, mask, scene))
         val_loss = float(torch.stack(val_losses).sum()) if val_losses else 0.0
         test_loss = float(torch.stack(test_losses).sum()) if test_losses else 0.0
@@ -228,8 +283,12 @@ def add_arguments(parser, default_epochs=25):
     parser.add_argument("--augment_noise", action="store_true")
     parser.add_argument("--obs_dropout", action="store_true")
     parser.add_argument("--orbax", action="store_true", help="not ported: refused")
-    parser.add_argument("--bf16", action="store_true", help="not ported yet: refused")
-    parser.add_argument("--remat", action="store_true", help="not ported yet: refused")
+    parser.add_argument("--bf16", action="store_true",
+                        help="mixed precision: bf16 forward and backward, f32 master params, "
+                             "optimizer state and losses")
+    parser.add_argument("--remat", action="store_true",
+                        help="checkpoint each recurrence step: its activations are recomputed "
+                             "in the backward instead of kept")
     parser.add_argument("--device", default="cuda",
                         help="torch device to train on (cuda, cuda:N or cpu)")
 
@@ -271,8 +330,6 @@ def add_arguments(parser, default_epochs=25):
 def refuse_unported(args) -> None:
     """Raise on a flag whose path the port does not have, before anything runs."""
     refused = [
-        (args.obs_dropout, "--obs_dropout is not ported yet (ROADMAP Queue 1 item 9)"),
-        (args.bf16 or args.remat, "--bf16 and --remat are not ported yet (ROADMAP Queue 1 item 5)"),
         (args.dp * args.tp > 1, "--dp / --tp above 1 are not ported yet (ROADMAP Queue 1 item 8)"),
         (args.orbax, "--orbax is not ported: the port writes pickle sidecars only "
                      "(ROADMAP, 'Do not port')"),
@@ -343,14 +400,21 @@ def load_params(args, params, device):
 
 
 def restore_optimizer(optimizer, paths, opt_state) -> None:
-    """``--load-full-state``: Adam's moments from a port sidecar; a JAX
-    sidecar's optax state raises."""
+    """``--load-full-state``: Adam's moments from a port sidecar, or from a
+    JAX sidecar's optax state (``ckpt.adam_state_from_optax``)."""
     print("Loading Optimizer Dict")
     if not ckpt.is_port_opt_state(opt_state):
-        raise NotImplementedError(
-            "--load-full-state from a JAX sidecar (optax state) is not ported yet "
-            "(ROADMAP Queue 1 item 9); --load-state takes its weights")
+        opt_state = ckpt.adam_state_from_optax(opt_state)
     adam_state_from_numpy(optimizer, paths, opt_state)
+
+
+def configure(model, args):
+    """``--remat`` and ``--bf16`` on ``model`` (an SGAN: both players)."""
+    for part in (getattr(model, "generator", model), getattr(model, "discriminator", model)):
+        part.remat = args.remat
+    if args.bf16:
+        model.with_dtype(torch.bfloat16)
+    return model
 
 
 def main(epochs=25, argv=None):
@@ -363,8 +427,9 @@ def main(epochs=25, argv=None):
     open_run(args, "lstm_goals" if args.goals else "lstm")
     train_ds, val_ds, val_flag = read_splits(args)
 
-    model = LSTM(pool=pool, embedding_dim=args.coordinate_embedding_dim,
-                 hidden_dim=args.hidden_dim, goal_flag=args.goals, goal_dim=args.goal_dim)
+    model = configure(LSTM(pool=pool, embedding_dim=args.coordinate_embedding_dim,
+                           hidden_dim=args.hidden_dim, goal_flag=args.goals,
+                           goal_dim=args.goal_dim), args)
     params = model.init_params(torch.Generator().manual_seed(args.seed), device=device)
     params, state = load_params(args, params, device)
 
@@ -374,7 +439,7 @@ def main(epochs=25, argv=None):
         pred_length=args.pred_length, augment=args.augment, save_every=args.save_every,
         start_length=args.start_length, augment_noise=args.augment_noise,
         val_flag=val_flag, col_wt=args.col_wt, col_distance=args.col_distance,
-        seed=args.seed, clip_grad=args.clip_grad,
+        seed=args.seed, clip_grad=args.clip_grad, obs_dropout=args.obs_dropout,
     )
     start_epoch = 0
     if args.load_full_state:

@@ -26,9 +26,14 @@ In a generator step the discriminator scores positions that carry the
 generator's gradient, which the grid stage cannot pass on: that scoring
 takes the plain grid (``models/lstm.LSTM.route``).
 
-Not ported, and refused as the LSTM trainer refuses them
-(``trainers/lstm.refuse_unported``): ``--obs_dropout``, ``--bf16``,
-``--remat``, ``--dp`` / ``--tp`` above 1, ``--orbax``.
+``--bf16`` and ``--remat`` act on both players as in the LSTM trainer;
+``--obs_dropout`` trains the JAX trainer's host path: batches packed on the
+host (augmentation from the numpy generator) in their shuffled order, the
+generator and discriminator steps in turn, at the trainer's
+``start_length`` (the JAX SGAN trainer draws none).  ``--load-full-state``
+takes a JAX sidecar's two optax states.  Refused as the LSTM trainer
+refuses them (``trainers/lstm.refuse_unported``): ``--dp`` / ``--tp`` above
+1, ``--orbax``.
 
 Usage:
     python -m trajnetplusplusbaselines_torch.trainers.sgan --path trajdata \
@@ -51,13 +56,18 @@ from .common import (
     EpochLoop,
     SceneDataset,
     adam_state_to_numpy,
+    cast_compute,
+    f32_model,
     make_optimizer,
     optimizer_step,
+    outputs_f32,
+    packed_batch,
     param_items,
     set_lr,
     step_lr,
 )
-from .lstm import add_arguments, check_device, load_params, open_run, read_splits, restore_optimizer
+from .lstm import (add_arguments, check_device, configure, load_params, open_run, read_splits,
+                   restore_optimizer)
 
 
 class Trainer(EpochLoop):
@@ -66,7 +76,8 @@ class Trainer(EpochLoop):
 
     def __init__(self, model: SGAN, params, g_schedule, d_schedule, criterion="pred",
                  batch_size=8, obs_length=9, pred_length=12, augment=True, save_every=1,
-                 start_length=0, augment_noise=False, val_flag=True, seed=42, clip_grad=None):
+                 start_length=0, augment_noise=False, val_flag=True, seed=42, clip_grad=None,
+                 obs_dropout=False):
         if model.g_steps + model.d_steps < 1:
             raise ValueError("an SGAN trains with g_steps + d_steps >= 1")
         self.model = model
@@ -92,6 +103,7 @@ class Trainer(EpochLoop):
         self.augment_noise = augment_noise
         self.save_every = save_every
         self.start_length = start_length
+        self.obs_dropout = obs_dropout
         self.val_flag = val_flag
 
         self.rng = np.random.default_rng(seed)
@@ -100,6 +112,13 @@ class Trainer(EpochLoop):
         self._resident = {}
 
     # ------------------------------------------------------------------ step
+    def _params(self):
+        """Both players' params in the compute dtype (``--bf16``)."""
+        return cast_compute(self.params, self.model.compute_dtype)
+
+    def _f32(self, outputs):
+        return outputs_f32(outputs, self.model.compute_dtype)
+
     def variety_loss(self, rel, xy, scene_mask):
         """The criterion of each scene's primary, at its best mode, summed
         over scenes.  rel [k, T', S, A, 5]."""
@@ -113,11 +132,11 @@ class Trainer(EpochLoop):
     def _observed(self, xy, mask):
         return xy[self.start_length:self.obs_length], mask[self.start_length:self.obs_length]
 
-    def _fake_scores(self, observed, observed_mask, pred, valid, **kw):
+    def _fake_scores(self, params, observed, observed_mask, pred, valid, **kw):
         """The discriminator's scores of the last mode's predicted frames."""
-        return self.model.discriminator.score(
-            self.params["discriminator"], observed, observed_mask, pred[-1][-self.pred_length:],
-            valid[-1][-self.pred_length:], **kw)
+        return self._f32(self.model.discriminator.score(
+            params["discriminator"], observed, observed_mask, pred[-1][-self.pred_length:],
+            valid[-1][-self.pred_length:], **kw))
 
     def g_loss_and_grads(self, xy, mask, scene_mask, goals=None, slot_mask=None, *,
                          noise=None, label=None):
@@ -125,12 +144,13 @@ class Trainer(EpochLoop):
         noise [k, noise_dim] and the smoothed real label, else drawn."""
         observed, observed_mask = self._observed(xy, mask)
         kw = dict(goals=goals, slot_mask=slot_mask)
-        rel, pred, valid = self.model.generate(
-            self.params, observed, observed_mask, xy[self.obs_length:], mask[self.obs_length:],
-            noise=noise, rng=self.generator, **kw)
+        params = self._params()
+        rel, pred, valid = self._f32(self.model.generate(
+            params, observed, observed_mask, xy[self.obs_length:], mask[self.obs_length:],
+            noise=noise, rng=self.generator, **kw))
         loss = self.variety_loss(rel, xy, scene_mask)
         if self.model.d_steps:
-            scores_fake = self._fake_scores(observed, observed_mask, pred, valid, **kw)
+            scores_fake = self._fake_scores(params, observed, observed_mask, pred, valid, **kw)
             loss = loss + gan_g_loss(scores_fake, label, generator=self.generator)
         grads = torch.autograd.grad(loss, self.g_leaves, materialize_grads=True)
         return loss.detach(), grads
@@ -143,13 +163,14 @@ class Trainer(EpochLoop):
         observed, observed_mask = self._observed(xy, mask)
         kw = dict(goals=goals, slot_mask=slot_mask)
         truth, truth_mask = xy[self.obs_length:], mask[self.obs_length:]
+        params = self._params()
         with torch.no_grad():
-            _, pred, valid = self.model.generate(self.params, observed, observed_mask, truth,
-                                                 truth_mask, modes=1, noise=noise,
-                                                 rng=self.generator, **kw)
-        scores_real = self.model.discriminator.score(self.params["discriminator"], observed,
-                                                     observed_mask, truth, truth_mask, **kw)
-        scores_fake = self._fake_scores(observed, observed_mask, pred, valid, **kw)
+            _, pred, valid = self._f32(self.model.generate(
+                params, observed, observed_mask, truth, truth_mask, modes=1, noise=noise,
+                rng=self.generator, **kw))
+        scores_real = self._f32(self.model.discriminator.score(
+            params["discriminator"], observed, observed_mask, truth, truth_mask, **kw))
+        scores_fake = self._fake_scores(params, observed, observed_mask, pred, valid, **kw)
         loss = gan_d_loss(scores_real, scores_fake, label, generator=self.generator)
         grads = torch.autograd.grad(loss, self.d_leaves, materialize_grads=True)
         return loss.detach(), grads
@@ -183,7 +204,7 @@ class Trainer(EpochLoop):
             "g_opt_state": adam_state_to_numpy(self.g_optimizer, self.g_paths),
             "d_opt_state": adam_state_to_numpy(self.d_optimizer, self.d_paths),
         }
-        ckpt.save_predictor(SGANPredictor(self.model, self.params), filename, state)
+        ckpt.save_predictor(SGANPredictor(f32_model(self.model), self.params), filename, state)
 
     def train(self, scenes: SceneDataset, epoch: int):
         start_time = time.time()
@@ -192,11 +213,16 @@ class Trainer(EpochLoop):
         set_lr(self.g_optimizer, lr)
         set_lr(self.d_optimizer, float(self.d_schedule(epoch)))
 
-        resident = self._get_resident(scenes)
-        plan = resident.epoch_plan(self.batch_size, self.rng, shuffle=True)
-        kinds = self.step_types(sum(idx.shape[0] for idx, _ in plan.values()))
+        if self.obs_dropout:
+            # the JAX trainer's host path, in the shuffled order
+            batches = [packed_batch(packed, self.device) for packed in scenes.epoch_batches(
+                self.batch_size, self.rng, self.augment, self.augment_noise)]
+        else:
+            resident = self._get_resident(scenes)
+            plan = resident.epoch_plan(self.batch_size, self.rng, shuffle=True)
+            batches = self._batches(resident, plan, self.augment, self.augment_noise)
         losses = [self.train_step(*batch, step_type=kind) for kind, batch in
-                  zip(kinds, self._batches(resident, plan, self.augment, self.augment_noise))]
+                  zip(self.step_types(len(scenes)), batches)]  # at most a batch a scene
         losses = torch.stack(losses).cpu().numpy() if losses else np.zeros(0)  # sync point
         self.log_train(scenes, epoch, losses, start_time, lr)
 
@@ -208,9 +234,9 @@ class Trainer(EpochLoop):
         with torch.no_grad():
             for xy, mask, scene, goals, slot in self._batches(resident, plan):
                 observed, observed_mask = self._observed(xy, mask)
-                rel, _, _ = self.model.generate(self.params, observed, observed_mask,
-                                                n_predict=self.pred_length, rng=self.generator,
-                                                goals=goals, slot_mask=slot)
+                rel, _, _ = self._f32(self.model.generate(
+                    self._params(), observed, observed_mask, n_predict=self.pred_length,
+                    rng=self.generator, goals=goals, slot_mask=slot))
                 test_losses.append(self.variety_loss(rel, xy, scene))
         test_loss = float(torch.stack(test_losses).sum()) if test_losses else 0.0
         self.log.info({
@@ -247,7 +273,8 @@ def main(epochs=25, argv=None):
                               noise_type=args.noise_type, **lstm_args)
     # the discriminator has its own, identically configured pool
     discriminator = LSTMDiscriminator(pool=d_pool, **lstm_args)
-    model = SGAN(generator, discriminator, k=args.k, d_steps=args.d_steps, g_steps=args.g_steps)
+    model = configure(SGAN(generator, discriminator, k=args.k, d_steps=args.d_steps,
+                           g_steps=args.g_steps), args)
     params = model.init_params(torch.Generator().manual_seed(args.seed), device=device)
     params, state = load_params(args, params, device)
 
@@ -256,7 +283,7 @@ def main(epochs=25, argv=None):
         criterion=args.loss, batch_size=args.batch_size, obs_length=args.obs_length,
         pred_length=args.pred_length, augment=args.augment, save_every=args.save_every,
         start_length=args.start_length, augment_noise=args.augment_noise, val_flag=val_flag,
-        seed=args.seed, clip_grad=args.clip_grad,
+        seed=args.seed, clip_grad=args.clip_grad, obs_dropout=args.obs_dropout,
     )
     start_epoch = 0
     if args.load_full_state:

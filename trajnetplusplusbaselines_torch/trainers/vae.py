@@ -21,8 +21,12 @@ times (8 encoder, 11 prediction-encoder and 11 decoder steps; the k modes
 decode as one batch); validation records no autograd, so a flagship VAE
 takes the fused step there, 30 launches per batch.
 
-Not ported, and refused as the LSTM trainer refuses them
-(``trainers/lstm.refuse_unported``).
+``--bf16`` and ``--remat`` as in the LSTM trainer; ``--obs_dropout``
+trains the JAX trainer's host path: batches packed on the host
+(augmentation from the numpy generator) in their shuffled order, one
+``start_length`` drawn after each, validation from frame 0;
+``--load-full-state`` takes a JAX sidecar's optax state.  Refused as the
+LSTM trainer refuses them (``trainers/lstm.refuse_unported``).
 
 Usage:
     python -m trajnetplusplusbaselines_torch.trainers.vae --path trajdata \
@@ -37,7 +41,7 @@ import torch
 from ..losses import kld_loss, l2_loss, prediction_loss
 from ..models.vae import VAE, VAEPredictor
 from ..ops.pooling import make_pool
-from .common import optimizer_step, step_lr
+from .common import optimizer_step, packed_batch, step_lr
 from . import lstm as lstm_trainer
 
 
@@ -50,13 +54,16 @@ class Trainer(lstm_trainer.Trainer):
         super().__init__(model, params, lr_schedule, **kwargs)
         self.alpha_kld = alpha_kld
 
-    def losses(self, xy, mask, scene_mask, goals=None, slot_mask=None, *, eps=None):
+    def losses(self, xy, mask, scene_mask, goals=None, slot_mask=None, *, eps=None,
+               start_length=None):
         """(reconstruction, KL divergence) of one batch in training mode.
-        eps [k, S, A, latent], else drawn."""
-        sl = self.start_length
-        rel, _, _, z_xy, z_x = self.model.forward(
-            self.params, xy[sl:self.obs_length], mask[sl:self.obs_length],
-            xy[self.obs_length:self.seq_length - 1], mask[self.obs_length:self.seq_length - 1],
+        eps [k, S, A, latent], else drawn; ``start_length``, the trainer's by
+        default."""
+        sl = self.start_length if start_length is None else start_length
+        rel, _, _, z_xy, z_x = self._forward(
+            self.params, xy, mask, sl,
+            prediction_truth=xy[self.obs_length:self.seq_length - 1],
+            prediction_truth_mask=mask[self.obs_length:self.seq_length - 1],
             training=True, eps=eps, rng=self.generator, goals=goals, slot_mask=slot_mask)
         targets = (xy[self.obs_length:self.seq_length, :, 0]
                    - xy[self.obs_length - 1:self.seq_length - 1, :, 0])
@@ -66,29 +73,46 @@ class Trainer(lstm_trainer.Trainer):
         kld = kld_loss(z_xy[:, 0], z_x[:, 0] if z_x is not None else None) * self.batch_size
         return reconstr, kld
 
-    def loss_and_grads(self, xy, mask, scene_mask, goals=None, slot_mask=None, *, eps=None):
+    def loss_and_grads(self, xy, mask, scene_mask, goals=None, slot_mask=None, *, eps=None,
+                       start_length=None):
         """(reconstruction + alpha_kld KLD, reconstruction, the gradient of
         the first for every leaf)."""
-        reconstr, kld = self.losses(xy, mask, scene_mask, goals, slot_mask, eps=eps)
+        reconstr, kld = self.losses(xy, mask, scene_mask, goals, slot_mask, eps=eps,
+                                    start_length=start_length)
         loss = reconstr + self.alpha_kld * kld
         grads = torch.autograd.grad(loss, self.leaves, materialize_grads=True)
         return loss.detach(), reconstr.detach(), grads
 
-    def train_step(self, xy, mask, scene_mask, goals=None, slot_mask=None):
+    def train_step(self, xy, mask, scene_mask, goals=None, slot_mask=None, start_length=None):
         """One optimizer step on one batch; returns the reconstruction loss,
         on the device."""
-        _, reconstr, grads = self.loss_and_grads(xy, mask, scene_mask, goals, slot_mask)
+        _, reconstr, grads = self.loss_and_grads(xy, mask, scene_mask, goals, slot_mask,
+                                                 start_length=start_length)
         optimizer_step(self.optimizer, self.leaves, grads, self.clip_grad)
         return reconstr
+
+    def _train_obs_dropout(self, scenes, epoch: int):
+        """``--obs_dropout``'s epoch as the JAX VAE trainer runs it: the
+        host-packed batches in their shuffled order, one ``start_length``
+        drawn after each.  Returns the losses, on the device."""
+        losses, start_lengths = [], []
+        for packed in scenes.epoch_batches(self.batch_size, self.rng, self.augment,
+                                           self.augment_noise):
+            start_lengths.append(int(self.rng.integers(0, self.obs_length - 1)))
+            losses.append(self.train_step(*packed_batch(packed, self.device),
+                                          start_length=start_lengths[-1]))
+        self.log.info({"type": "obs-dropout", "epoch": epoch, "start_lengths": start_lengths})
+        return losses
 
     def val(self, scenes, epoch: int):
         eval_start = time.time()
         resident = self._get_resident(scenes)
         plan = resident.epoch_plan(self.batch_size, self.rng, shuffle=False)
+        sl = 0 if self.obs_dropout else self.start_length
         val_losses = []
         with torch.no_grad():
             for batch in self._batches(resident, plan):
-                reconstr, kld = self.losses(*batch)
+                reconstr, kld = self.losses(*batch, start_length=sl)
                 val_losses.append(reconstr + self.alpha_kld * kld)
         val_loss = float(torch.stack(val_losses).sum()) if val_losses else 0.0
         self.log.info({
@@ -114,9 +138,10 @@ def main(epochs=25, argv=None):
     lstm_trainer.open_run(args, "vae_goals" if args.goals else "vae")
     train_ds, val_ds, val_flag = lstm_trainer.read_splits(args)
 
-    model = VAE(embedding_dim=args.coordinate_embedding_dim, hidden_dim=args.hidden_dim,
-                pool=pool, goal_flag=args.goals, goal_dim=args.goal_dim, num_modes=args.k,
-                latent_dim=args.vae_latent_dim)
+    model = lstm_trainer.configure(
+        VAE(embedding_dim=args.coordinate_embedding_dim, hidden_dim=args.hidden_dim, pool=pool,
+            goal_flag=args.goals, goal_dim=args.goal_dim, num_modes=args.k,
+            latent_dim=args.vae_latent_dim), args)
     params = model.init_params(torch.Generator().manual_seed(args.seed), device=device)
     params, state = lstm_trainer.load_params(args, params, device)
 
@@ -125,7 +150,7 @@ def main(epochs=25, argv=None):
         criterion=args.loss, batch_size=args.batch_size, obs_length=args.obs_length,
         pred_length=args.pred_length, augment=args.augment, save_every=args.save_every,
         start_length=args.start_length, augment_noise=args.augment_noise, val_flag=val_flag,
-        seed=args.seed, clip_grad=args.clip_grad,
+        seed=args.seed, clip_grad=args.clip_grad, obs_dropout=args.obs_dropout,
     )
     start_epoch = 0
     if args.load_full_state:

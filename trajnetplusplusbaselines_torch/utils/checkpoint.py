@@ -9,21 +9,26 @@ the predictor through an unpickler that maps the configuration classes of
 either package (the LSTM, the SGAN with its generator and discriminator,
 the VAE and every pool class) to plain stubs (unpickling restores
 ``__dict__`` and bypasses ``__init__``), then builds the port's model from
-the restored attributes.  A configuration with a compute dtype (a bf16
-model) raises ``NotImplementedError``; any other class raises
-``UnpicklingError``.  ``save_predictor`` writes the same layout with the
-port's configuration, and the sidecar when given a state.
+the restored attributes.  A configuration's compute dtype (JAX's
+``jnp.bfloat16``, pickled by reference, the name ``"bfloat16"`` or
+``torch.bfloat16``) becomes the model's ``with_dtype(torch.bfloat16)``, and
+the predictor serves in bf16; another compute dtype raises
+``NotImplementedError``, any other class ``UnpicklingError``.
+``save_predictor`` writes the same layout with the port's configuration,
+and the sidecar when given a state.
 
 The port's sidecar holds numpy only; its optimizer state is the torch Adam
 state keyed by parameter path (``trainers/common.adam_state_to_numpy``).  A
 JAX sidecar's ``opt_state`` is optax's state, a tree of NamedTuples:
 ``load_state`` maps their classes to a tuple stub, with no optax import, so
-the weights of either package's sidecar load.
+the weights of either package's sidecar load, and
+``adam_state_from_optax`` turns its Adam moments into the port's state, so
+``--load-full-state`` resumes a JAX run.
 """
 
 import inspect
 import pickle
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +37,7 @@ from ..models.lstm import LSTM, LSTMPredictor
 from ..models.sgan import SGAN, LSTMDiscriminator, LSTMGenerator, SGANPredictor
 from ..models.vae import VAE, VAEPredictor
 from ..ops import pooling
+from ..trainers.common import param_items
 from .convert import params_from_jax, params_to_numpy
 
 
@@ -60,6 +66,8 @@ _PREDICTORS = {"LSTMPredictor": (LSTMPredictor, LSTM), "SGANPredictor": (SGANPre
 # where the two differ
 _ATTRIBUTE_OF = {"no_vel": "no_velocity"}
 _NUMPY_NAMES = {"_reconstruct", "ndarray", "dtype", "scalar", "_frombuffer"}
+# a configuration's compute dtype, pickled by reference
+_DTYPES = {("jax.numpy", "bfloat16"): torch.bfloat16, ("torch", "bfloat16"): torch.bfloat16}
 
 
 class OptaxState(tuple):
@@ -74,6 +82,8 @@ class _Unpickler(pickle.Unpickler):
     def find_class(self, module, name):
         if (module, name) in _CONFIG_CLASSES:
             return _CONFIG_CLASSES[(module, name)]
+        if (module, name) in _DTYPES:
+            return _DTYPES[(module, name)]
         if (module == "numpy" or module.startswith("numpy.")) and name in _NUMPY_NAMES:
             return super().find_class(module, name)
         raise pickle.UnpicklingError(f"pickle holds unsupported class {module}.{name}")
@@ -102,6 +112,16 @@ def from_attributes(port_class, attrs: dict):
     return port_class(**kwargs)
 
 
+def compute_dtype(value) -> Optional[torch.dtype]:
+    """The torch dtype of a configuration's restored ``compute_dtype``: None,
+    or bf16 however it was pickled; another dtype raises."""
+    if value is None:
+        return None
+    if value is torch.bfloat16 or value == "bfloat16":
+        return torch.bfloat16
+    raise NotImplementedError(f"compute dtype {value!r} is not ported: only bfloat16")
+
+
 def _from_config(cfg):
     """The port's object for a restored configuration stub, its nested
     configurations (a model's pool, an SGAN's generator and discriminator)
@@ -112,12 +132,14 @@ def _from_config(cfg):
     if port_class is None:
         raise NotImplementedError(f"{type(cfg).__name__} is not ported yet")
     attrs = dict(vars(cfg))
-    if attrs.get("compute_dtype") is not None:
-        raise NotImplementedError(f"compute dtype {attrs['compute_dtype']} is not ported yet")
+    dtype = compute_dtype(attrs.get("compute_dtype"))
     for key in ("pool", "generator", "discriminator"):
         if key in attrs:
             attrs[key] = _from_config(attrs[key])
-    return from_attributes(port_class, attrs)
+    obj = from_attributes(port_class, attrs)
+    if dtype is not None:
+        obj.with_dtype(dtype)
+    return obj
 
 
 def load_predictor(filename: str):
@@ -162,6 +184,40 @@ def is_port_opt_state(opt_state) -> bool:
     """True for the port's Adam state (a dict by parameter path), False for
     a JAX sidecar's optax state."""
     return isinstance(opt_state, dict)
+
+
+def _adam_moments(state):
+    """optax's ``ScaleByAdamState(count, mu, nu)`` in a restored optax state:
+    found by its shape (a count and two trees of the same structure), not by
+    its index in the chain, which moves with ``--clip_grad``."""
+    if isinstance(state, OptaxState) and len(state) == 3 and all(
+            isinstance(x, dict) for x in state[1:]):
+        mu, nu = (dict(param_items(x)) for x in state[1:])
+        if mu.keys() == nu.keys() and np.ndim(state[0]) == 0:
+            return state
+    if isinstance(state, tuple):
+        found = [m for m in map(_adam_moments, state) if m is not None]
+        if len(found) > 1:
+            raise ValueError("the optax state holds more than one Adam state")
+        return found[0] if found else None
+    return None
+
+
+def adam_state_from_optax(opt_state) -> dict:
+    """The port's Adam state (``trainers/common.adam_state_to_numpy``'s
+    layout) from a JAX sidecar's optax state: ``inject_hyperparams`` around
+    the chain of ``trainers/common.make_optimizer`` (an optional clip,
+    ``add_decayed_weights``, ``scale_by_adam``, ``scale_by_learning_rate``).
+    ``mu`` is ``exp_avg``, ``nu`` ``exp_avg_sq`` and ``count`` ``step``, by
+    parameter path."""
+    adam = _adam_moments(opt_state)
+    if adam is None:
+        raise ValueError("the optax state holds no Adam state (ScaleByAdamState)")
+    count, mu, nu = adam
+    step = float(np.asarray(count))
+    nu = dict(param_items(nu))
+    return {path: {"step": step, "exp_avg": np.asarray(m), "exp_avg_sq": np.asarray(nu[path])}
+            for path, m in param_items(mu)}
 
 
 def merge_params_nonstrict(init_params, loaded_params) -> Tuple[Any, list]:
