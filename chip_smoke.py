@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port (LSTM family, SGAN, VAE, classical predictors, training options) on one NVIDIA card.
+"""Smoke run of the PyTorch port on one NVIDIA card: every model family, trainer, option, tool.
 
     python3 chip_smoke.py
 
@@ -131,6 +131,33 @@ PyTorch built for CUDA (no jax needed).  Phases, one line each:
        largest, the peak memory, the time and the grid-stage launches (19
        more with remat) both ways.
 
+11. parallel (every line beside the card), two ranks on the one card, which
+    share it through gloo (NCCL refuses two ranks on one card), started by
+    ``python -m torch.distributed.run --standalone --nproc_per_node 2
+    chip_smoke.py --rank-run DIR``, each rank driving the port's entry
+    points, its launch counters zeroed before and read after each run:
+   (a) ``trainers.lstm.main([... "--dp", "2", "--tp", "1"])`` and then
+       ``--dp 1 --tp 2``, one epoch at batch 8 on phase 6's sizes: every
+       batch loss within 1e-5 relative of a one-process run of the same
+       seed, 19 grid-stage launches per train step (and 2 x 19 fused per
+       val batch) in each rank; one ``make_sharded_train_step`` step's
+       all-reduced gradients within 1e-5 of each leaf's largest of the
+       one-process step's; each rank's ms per step against one process's,
+       labelled "two ranks on one card; not a scaling number";
+   (b) ``trainers.ensemble.main([... "--dp", "2"])``, two members, one
+       epoch: member losses within 1e-5 relative of the one-process
+       ensemble, 19 grid launches per ensemble step in each rank;
+   (c) ``make_sharded_rollout`` at S=64, A=8 over the two ranks: positions
+       within 1e-6 m of the one-process rollout, 19 fused launches in each
+       rank; ``evaluator.lstm_cli`` over the two ranks on a split of three
+       test datasets (shares of 2 and 1) serving phase 6's pickle: the
+       files one process writes, line for line, scored once, by rank 0;
+   (d) ``tools.collision_gate --device cuda`` on phase 6's pickle over a
+       head-on ``collision_test`` scene: the Pass/Fail of ``--device cpu``,
+       19 fused launches;
+   (e) ``tools.profile_train --device cuda --steps 2``: its Chrome trace
+       holds ``directional_grid_kernel`` events (19 grid launches a step).
+
 Then one JSON line of the kernels and, last, ``{"ok": true, "device": ...}``.
 Any failed phase raises, so the script exits non-zero and prints no result;
 so does a machine without CUDA or a directory without the package.
@@ -238,6 +265,18 @@ BF16_LOSS_RTOL, BF16_GRAD_COSINE = 1e-2, 0.99
 # to 1e-6 of each leaf's largest gradient
 REMAT_ATOL_SHARE = 1e-6
 CLASSICAL_MODELS = ("kf", "sf", "sf_opt", "orca", "orca_opt", "cv")  # classical_cli's order
+# phase 11: two ranks on the one card (gloo), at the flagship's widths
+PARALLEL_SPLIT = (320, 96, 64)  # phase 6's train, val, test scenes
+PARALLEL_SERVE = (("a", 40), ("b", 24), ("c", 16))  # three test datasets, unequal shares
+PARALLEL_SEEDS = ("42", "10")  # the ensemble's members
+PARALLEL_ROLLOUT = (64, 8)  # (scenes, agents) of the sharded rollout
+PARALLEL_LOSS_RTOL = 1e-5  # each batch loss of a sharded run against one process
+PARALLEL_GRAD_ATOL_SHARE = 1e-5  # a sharded step's gradients, of each leaf's largest
+PARALLEL_POSITION_ATOL = 1e-6  # metres, the sharded rollout against one process
+PARALLEL_TIMEOUT_S = 420  # the two ranks' whole run; then they are killed
+PARALLEL_TIMED_REPS = 10
+NOT_SCALING = "two ranks on one card; not a scaling number"
+GRID_KERNEL = "directional_grid_kernel"  # the grid stage's name in a profiler trace
 
 
 def step_bound(rows):
@@ -722,6 +761,7 @@ def train_phase(dev, rng) -> dict:
     from trajnetplusplusbaselines_torch.ops.cuda import fused_step
     from trajnetplusplusbaselines_torch.trainers import lstm as train_cli
     from trajnetplusplusbaselines_torch.trainers.common import bucket_batches, step_lr
+    from trajnetplusplusbaselines_torch.utils.checkpoint import load_predictor
     from trajnetplusplusbaselines_torch.utils.convert import params_from_jax, params_to_numpy
 
     cwd = os.getcwd()
@@ -769,6 +809,7 @@ def train_phase(dev, rng) -> dict:
                 raise AssertionError(f"train loss did not fall: {epoch_losses}")
 
             # the trained pickle serves the test part through lstm_cli
+            trained = load_predictor(out)
             table = lstm_cli.main(["--path", "synth_train", "--output", out, "--device", DEVICE])
             served = table.results[f"{name}_modes1"][32:40]
             if served[0] != len(test_observed) or not np.isfinite(served[1:3]).all():
@@ -836,7 +877,7 @@ def train_phase(dev, rng) -> dict:
         + "  grid {:.4f} ms per call vs plain {:.4f} ms".format(grid_ms, plain_grid_ms),
         flush=True)
     return {"launches": train_launches, "grid_ms": grid_ms, "plain_grid_ms": plain_grid_ms,
-            "timed": timed}
+            "timed": timed, "predictor": trained}
 
 
 def device_phase(dev, rng, model, params, rollout_ms) -> dict:
@@ -936,11 +977,15 @@ class Launches:
         for _, fn, attr in self.kernels:
             setattr(fn, attr, 0)
 
+    def current(self) -> dict:
+        """The counts since ``zero``, by kernel."""
+        torch.cuda.synchronize()
+        return {name: getattr(fn, attr) for name, fn, attr in self.kernels}
+
     def read(self, want, add=True) -> dict:
         """The counts since ``zero``, held to ``want`` (a kernel it does not
         name: none); ``add`` takes them into the totals."""
-        torch.cuda.synchronize()
-        got = {name: getattr(fn, attr) for name, fn, attr in self.kernels}
+        got = self.current()
         if add:
             for name in self.totals:
                 self.totals[name] += got[name]
@@ -1880,10 +1925,423 @@ def classical_phase(dev, rng, card, profile_dir=None) -> dict:
     return {"rows": rows, "cli_seconds": cli_s, "seconds": seconds}
 
 
+# ------------------------------------------------------------------ phase 11
+def parallel_split(rng):
+    """Phase 11's data, in the working directory: phase 6's split
+    (``DATA_BLOCK/synth_par``) and a split of three test datasets of
+    ``PARALLEL_SERVE``'s sizes (``DATA_BLOCK/synth_serve``).  Returns each
+    serve dataset's observed scenes, by name."""
+    import shutil
+
+    n_train, n_val, n_test = PARALLEL_SPLIT
+    root = "DATA_BLOCK/synth_par"
+    write_split(root, rng, n_scenes=n_train, big=None, observed_only=(), full=("train",))
+    write_split(root, rng, n_scenes=n_val, big=None, observed_only=(), full=("val",))
+    write_split(root, rng, n_scenes=n_test, big=None)
+    served = {}
+    for name, n in PARALLEL_SERVE:
+        served[name] = write_split("DATA_BLOCK/tmp_" + name, rng, n_scenes=n, big=None)
+        for sub in ("test", "test_private"):
+            os.makedirs(f"DATA_BLOCK/synth_serve/{sub}", exist_ok=True)
+            os.replace(f"DATA_BLOCK/tmp_{name}/{sub}/synth.ndjson",
+                       f"DATA_BLOCK/synth_serve/{sub}/{name}.ndjson")
+        shutil.rmtree("DATA_BLOCK/tmp_" + name)
+    return served
+
+
+def logged_losses(losses, n_scenes) -> np.ndarray:
+    """The losses a trainer's log records of an epoch's per-batch
+    ``losses``: those of every tenth batch ("train") and the epoch's
+    ("train-epoch", the sum over the scenes)."""
+    return np.append(losses[9::10], losses.sum() / n_scenes)
+
+
+def relative(got, want) -> float:
+    """The largest relative difference of ``got`` from ``want``."""
+    return float(np.max(np.abs(np.asarray(got) - want) / np.abs(want)))
+
+
+def parallel_batch(dev):
+    """The batch of phase 11's sharded train steps: S=8, A=8 at a fixed seed,
+    every slot real, zero goals."""
+    from trajnetplusplusbaselines_torch.trainers.common import Batch
+
+    xy, mask, scene = train_inputs(np.random.default_rng(5), TRAIN_BATCH, 8, dev)
+    return Batch(xy, mask, scene, torch.zeros_like(xy[0]),
+                 torch.ones(xy.shape[1:3], dtype=torch.bool, device=dev))
+
+
+def first_step_grads(mesh, dev):
+    """The gradient of every leaf after one ``make_sharded_train_step`` step
+    of the seed-0 flagship on ``parallel_batch`` (``mesh`` None: one
+    process), full leaves, by path, as numpy; and the step's loss."""
+    from trajnetplusplusbaselines_torch.parallel import make_sharded_train_step
+    from trajnetplusplusbaselines_torch.parallel.mesh import param_shardings, tree_map_with_path
+    from trajnetplusplusbaselines_torch.trainers.common import make_optimizer, param_items
+
+    model = flagship_model()
+    params = model.init_params(torch.Generator().manual_seed(0), device=dev)
+    step, place_batch, place_params = make_sharded_train_step(model, make_optimizer, mesh,
+                                                              batch_size=TRAIN_BATCH)
+    b = parallel_batch(dev)
+    placed, _, loss = step(place_params(params), None,
+                           *place_batch(b.xy, b.mask, b.goals, b.slot_mask, b.scene_mask))
+    split = param_shardings(mesh, params) if mesh is not None else {}
+    grads = {}
+    tree_map_with_path(lambda path, leaf: grads.__setitem__(path, (
+        mesh.gather_columns(leaf.grad, autograd=False) if path in split and split[path].split
+        else leaf.grad).cpu().numpy()), placed)
+    paths = sorted(p for p, _ in param_items(params))
+    if sorted(grads) != paths:
+        raise AssertionError(f"the sharded step's leaves {sorted(grads)} != {paths}")
+    return grads, float(loss)
+
+
+def flagship_model():
+    from trajnetplusplusbaselines_torch.models.lstm import LSTM
+    from trajnetplusplusbaselines_torch.ops.pooling import GridBasedPooling
+
+    return LSTM(pool=GridBasedPooling(type_="directional", hidden_dim=128, cell_side=CELL_SIDE,
+                                      n=N, out_dim=256), embedding_dim=64, hidden_dim=128)
+
+
+def rank_main(outdir) -> int:
+    """One rank of phase 11, started by ``torch.distributed.run`` on the
+    card's machine (``--rank-run OUTDIR``): the runs of phase 11 (a)-(c) in
+    this rank, each with the launch counters zeroed just before and read
+    just after, pickled to ``OUTDIR/rank<r>.pkl``."""
+    sys.path.insert(0, str(REPO))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from trajnetplusplusbaselines_torch.evaluator import lstm_cli
+    from trajnetplusplusbaselines_torch.ops.cuda import build
+    from trajnetplusplusbaselines_torch.parallel import make_mesh, make_sharded_rollout
+    from trajnetplusplusbaselines_torch.parallel.multihost import (collective_route,
+                                                                   init_from_env, process_info)
+    from trajnetplusplusbaselines_torch.trainers import ensemble
+    from trajnetplusplusbaselines_torch.trainers import lstm as train_cli
+
+    dev = init_from_env(DEVICE)
+    rank, world = process_info()
+    build.load_library()  # built by the parent process
+    os.chdir(outdir)
+    counters = Launches()
+    out = {"rank": rank, "world": world, "device": str(dev), "route": collective_route(dev)}
+
+    def counted(fn):
+        """(fn(), the launches it made, its seconds)."""
+        counters.zero()
+        t0 = time.perf_counter()
+        value = fn()
+        torch.cuda.synchronize()
+        return value, counters.current(), time.perf_counter() - t0
+
+    batch = parallel_batch(dev)
+    for name, dp, tp in (("dp", 2, 1), ("tp", 1, 2)):
+        trainer, launches, seconds = counted(lambda: train_cli.main(argv=flagship_argv(
+            "synth_par", "--epochs", "1", "--seed", "0", "--dp", str(dp), "--tp", str(tp),
+            "-o", name)))
+        close_log()
+        (_, train_res), (_, val_res) = trainer._resident.values()
+        step_ms = time_ms(lambda: trainer.train_step(*batch), reps=PARALLEL_TIMED_REPS,
+                          warmup=2)
+        grads, loss = first_step_grads(make_mesh(world, dp, tp, dev), dev)
+        out[name] = {"losses": trainer.epoch_losses, "launches": launches, "seconds": seconds,
+                     "train_batches": batches_per_epoch(train_res),
+                     "val_batches": batches_per_epoch(val_res), "step_ms": step_ms,
+                     "grads": grads if rank == 0 else None, "step_loss": loss}
+
+    ens, launches, seconds = counted(lambda: ensemble.main(argv=flagship_argv(
+        "synth_par", "--epochs", "1", "--seeds", *PARALLEL_SEEDS, "--dp", "2")))
+    close_log()
+    (_, train_res), (_, val_res) = ens._resident.values()
+    out["ensemble"] = {"losses": ens.epoch_losses, "launches": launches, "seconds": seconds,
+                       "train_batches": batches_per_epoch(train_res),
+                       "val_batches": batches_per_epoch(val_res)}
+
+    s, a = PARALLEL_ROLLOUT
+    xy, mask = rollout_inputs(np.random.default_rng(11), s, a, dev)
+    model = flagship_model()
+    params = model.init_params(torch.Generator().manual_seed(0), device=dev)
+    rollout, place_batch = make_sharded_rollout(model, make_mesh(world, world, 1, dev))
+    placed = place_batch(xy.cpu().numpy(), mask.cpu().numpy(), np.zeros((s, a, 2), np.float32),
+                         np.ones((s, a), bool))
+    (_, pred, valid), launches, seconds = counted(lambda: rollout(params, *placed))
+    out["rollout"] = {"pred": pred.cpu().numpy(), "valid": valid.cpu().numpy(),
+                      "launches": launches, "local_scenes": int(placed[0].shape[1])}
+
+    table, launches, seconds = counted(lambda: lstm_cli.main(
+        ["--path", "synth_serve", "--output", "p6.pkl", "--device", DEVICE,
+         "--batch_scenes", str(BATCH_SCENES)]))
+    out["serve"] = {"launches": launches, "seconds": seconds,
+                    "results": None if table is None else table.results}
+    with open(os.path.join(outdir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def launch_ranks(outdir, log_path):
+    """``python -m torch.distributed.run --standalone --nproc_per_node 2
+    chip_smoke.py --rank-run OUTDIR``, waited on for ``PARALLEL_TIMEOUT_S``;
+    the launcher and its ranks (one session) are killed after it.  Returns
+    its seconds."""
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           "2", str(REPO / "chip_smoke.py"), "--rank-run", str(outdir)]
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, cwd=outdir, env=env, stdout=log, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=PARALLEL_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(timeout=60)
+            rc = None
+    if rc != 0:
+        with open(log_path) as f:
+            tail = f.read()[-6000:]
+        raise AssertionError(f"the two ranks {'timed out' if rc is None else f'exited {rc}'}:"
+                             f"\n{tail}")
+    return time.perf_counter() - t0
+
+
+def parallel_phase(dev, rng, card, p6_predictor) -> dict:
+    """Phase 11 (see the module's docstring): two ranks on the card, against
+    one process.  Returns the launch counts of rank 0's runs and this
+    process's, by kernel, and the phase's seconds."""
+    from trajnetplusplusbaselines_torch.evaluator import lstm_cli
+    from trajnetplusplusbaselines_torch.evaluator.learned import bucket_plan
+    from trajnetplusplusbaselines_torch.parallel.multihost import shard_items
+    from trajnetplusplusbaselines_torch.tools import collision_gate, profile_train
+    from trajnetplusplusbaselines_torch.trainers import ensemble
+    from trajnetplusplusbaselines_torch.trainers import lstm as train_cli
+    from trajnetplusplusbaselines_torch.trainers.common import step_lr
+    from trajnetplusplusbaselines_torch.utils.checkpoint import save_predictor
+    from torch.utils._pytree import tree_map
+
+    t_phase = time.perf_counter()
+    counters = Launches()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            served = parallel_split(rng)
+            save_predictor(p6_predictor, "p6.pkl")
+            ranks_s = launch_ranks(tmp, os.path.join(tmp, "ranks.log"))
+            ranks = []
+            for r in range(2):
+                with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                    ranks.append(pickle.load(f))
+
+            # (a) one process: the same runs, the reference
+            batch = parallel_batch(dev)
+            counters.zero()
+            one = train_cli.main(argv=flagship_argv("synth_par", "--epochs", "1", "--seed", "0",
+                                                    "-o", "one"))
+            close_log()
+            (train_ds, train_res), (_, val_res) = one._resident.values()
+            train_batches, val_batches = map(batches_per_epoch, (train_res, val_res))
+            n_train = len(train_ds)
+            counters.read({"directional_grid": 19 * train_batches,
+                           "fused_dlstm_step": 2 * 19 * val_batches})
+            one_ms = time_ms(lambda: one.train_step(*batch), reps=PARALLEL_TIMED_REPS, warmup=2)
+            want_grads, want_loss = first_step_grads(None, dev)
+            figures = {}
+            # the same epoch from params one ulp away: one process's own f32
+            # sensitivity over the epoch, beside which a sharded run's drift
+            # (its sums in another order) is read
+            nudged = train_cli.Trainer(
+                one.model, tree_map(lambda x: torch.nextafter(x, torch.full_like(x, math.inf)),
+                                    one.model.init_params(torch.Generator().manual_seed(0),
+                                                          device=dev)),
+                step_lr(1e-3, 10), augment=False, seed=0)
+            nudged.train(train_ds, 0)
+            envelope = relative(nudged.epoch_losses, one.epoch_losses)
+            for name in ("dp", "tp"):
+                loss_rel = grad_share = drift = 0.0
+                for r, run in enumerate(ranks):
+                    got = run[name]
+                    if (got["train_batches"], got["val_batches"]) != (train_batches, val_batches):
+                        raise AssertionError(f"{name} rank {r} ran {got['train_batches']} + "
+                                             f"{got['val_batches']} batches")
+                    want = {"directional_grid": 19 * train_batches,
+                            "fused_dlstm_step": 2 * 19 * val_batches}
+                    if {k: got["launches"][k] for k in want} != want:
+                        raise AssertionError(f"{name} rank {r} launched {got['launches']}, "
+                                             f"expected {want} (19 grid a train step)")
+                    if got["losses"].shape != one.epoch_losses.shape:
+                        raise AssertionError(f"{name} rank {r} logged {got['losses'].shape} "
+                                             f"losses")
+                    rel = relative(logged_losses(got["losses"], n_train),
+                                   logged_losses(one.epoch_losses, n_train))
+                    if not rel <= PARALLEL_LOSS_RTOL:
+                        raise AssertionError(f"{name} rank {r}: logged losses differ by {rel} "
+                                             f"relative")
+                    loss_rel = max(loss_rel, rel)
+                    drift = max(drift, relative(got["losses"], one.epoch_losses))
+                grads = ranks[0][name]["grads"]
+                for path, w in want_grads.items():
+                    scale = float(np.abs(w).max())
+                    err = float(np.abs(grads[path] - w).max())
+                    if err > PARALLEL_GRAD_ATOL_SHARE * max(scale, 1e-30):
+                        raise AssertionError(f"{name}: the gradient of {path} differs by {err} "
+                                             f"of {scale}")
+                    grad_share = max(grad_share, err / max(scale, 1e-30))
+                figures[name] = {
+                    "logged_loss_max_rel_err": loss_rel, "batch_loss_max_rel_err": drift,
+                    "one_ulp_batch_loss_max_rel_err": envelope, "grad_max_err_share": grad_share,
+                    "step_loss": ranks[0][name]["step_loss"], "one_step_loss": want_loss,
+                    "launches_per_rank": [run[name]["launches"] for run in ranks],
+                    "train_batches": train_batches, "val_batches": val_batches,
+                    "step_ms": [run[name]["step_ms"] for run in ranks], "one_step_ms": one_ms,
+                    "cli_seconds": [run[name]["seconds"] for run in ranks]}
+                say("parallel_train", mesh=name, route=ranks[0]["route"], **figures[name],
+                    note=NOT_SCALING, card=card)
+                print(f"Parallel --{name} 2: {min(figures[name]['step_ms']):.3f} ms/step "
+                      f"against {one_ms:.3f} one process ({NOT_SCALING}; {card})", flush=True)
+
+            # (b) the ensemble at --dp 2 against one process
+            counters.zero()
+            ens = ensemble.main(argv=flagship_argv("synth_par", "--epochs", "1", "--seeds",
+                                                   *PARALLEL_SEEDS, "-o", "e"))
+            close_log()
+            steps = train_batches + val_batches
+            counters.read({"directional_grid": 19 * steps})
+            ens_rel = ens_drift = 0.0
+            for r, run in enumerate(ranks):
+                got = run["ensemble"]
+                if got["launches"]["directional_grid"] != 19 * steps or \
+                        got["launches"]["fused_dlstm_step"]:
+                    raise AssertionError(f"ensemble rank {r} launched {got['launches']}, "
+                                         f"expected 19 grid launches in each of {steps} steps")
+                if got["losses"].shape != ens.epoch_losses.shape:
+                    raise AssertionError(f"ensemble rank {r} logged {got['losses'].shape}")
+                # the members' losses as the ensemble logs them: each one's epoch
+                rel = relative(got["losses"].sum(axis=1), ens.epoch_losses.sum(axis=1))
+                if not rel <= PARALLEL_LOSS_RTOL:
+                    raise AssertionError(f"ensemble rank {r}: member losses differ by {rel} "
+                                         f"relative")
+                ens_rel = max(ens_rel, rel)
+                ens_drift = max(ens_drift, relative(got["losses"], ens.epoch_losses))
+            say("parallel_ensemble", members=len(PARALLEL_SEEDS), member_loss_max_rel_err=ens_rel,
+                batch_loss_max_rel_err=ens_drift,
+                launches_per_rank=[run["ensemble"]["launches"] for run in ranks],
+                steps=steps, cli_seconds=[run["ensemble"]["seconds"] for run in ranks],
+                note=NOT_SCALING, card=card)
+
+            # (c) the sharded rollout, and lstm_cli over two ranks
+            s, a = PARALLEL_ROLLOUT
+            xy, mask = rollout_inputs(np.random.default_rng(11), s, a, dev)
+            model = flagship_model()
+            params = model.init_params(torch.Generator().manual_seed(0), device=dev)
+            counters.zero()
+            with torch.no_grad():
+                _, pred, valid = model.forward(params, xy, mask, n_predict=12)
+            counters.read({"fused_dlstm_step": 19})
+            pos_err = 0.0
+            for r, run in enumerate(ranks):
+                got = run["rollout"]
+                if got["launches"]["fused_dlstm_step"] != 19 or got["local_scenes"] != s // 2:
+                    raise AssertionError(f"rank {r}'s rollout of {got['local_scenes']} scenes "
+                                         f"launched {got['launches']}, not 19 fused steps")
+                if not np.array_equal(got["valid"], valid.cpu().numpy()):
+                    raise AssertionError(f"rank {r}'s sharded rollout validity differs")
+                err = float(np.abs(got["pred"] - pred.cpu().numpy())[got["valid"]].max())
+                if not err <= PARALLEL_POSITION_ATOL:
+                    raise AssertionError(f"rank {r}'s sharded rollout differs by {err} m")
+                pos_err = max(pos_err, err)
+            names = sorted(served)
+            for r, run in enumerate(ranks):
+                want = 19 * sum(len(bucket_plan([xy.shape[1] for _, xy in served[d]],
+                                                BATCH_SCENES))
+                                for d in shard_items(names, r, 2))
+                if run["serve"]["launches"]["fused_dlstm_step"] != want:
+                    raise AssertionError(f"rank {r} served with {run['serve']['launches']}, "
+                                         f"expected {want} fused launches")
+            two_pred = "DATA_BLOCK/synth_serve/test_pred/p6_modes1"
+            two_files = {}
+            for name in names:
+                with open(f"{two_pred}/{name}.ndjson") as f:
+                    two_files[name] = f.read().splitlines()
+            os.rename("DATA_BLOCK/synth_serve/test_pred", "two_ranks_pred")
+            counters.zero()
+            table = lstm_cli.main(["--path", "synth_serve", "--output", "p6.pkl", "--device",
+                                   DEVICE, "--batch_scenes", str(BATCH_SCENES)])
+            one_launches = counters.read({"fused_dlstm_step": 19 * sum(
+                len(bucket_plan([xy.shape[1] for _, xy in served[d]], BATCH_SCENES))
+                for d in names)})
+            for name in names:
+                with open(f"{two_pred}/{name}.ndjson") as f:
+                    if f.read().splitlines() != two_files[name]:
+                        raise AssertionError(f"two ranks wrote {name} unlike one process")
+            if ranks[1]["serve"]["results"] is not None or \
+                    ranks[0]["serve"]["results"] != table.results:
+                raise AssertionError("the two ranks' scores are not rank 0's, once, as one "
+                                     "process scores")
+            say("parallel_serve", rollout_scenes=s, rollout_agents=a,
+                rollout_max_position_err_m=pos_err,
+                rollout_launches_per_rank=[run["rollout"]["launches"] for run in ranks],
+                datasets={d: len(served[d]) for d in names},
+                serve_launches_per_rank=[run["serve"]["launches"] for run in ranks],
+                one_process_launches=one_launches, files_equal=True, scored_by=[0],
+                serve_seconds=[run["serve"]["seconds"] for run in ranks], card=card)
+
+            # (d) collision_gate on the card against the CPU, on phase 6's pickle
+            frames = list(range(0, 210, 10))
+            for sub in ("test", "test_private"):
+                with open(f"DATA_BLOCK/synth_par/{sub}/collision_test.ndjson", "w") as f:
+                    f.write(json.dumps({"scene": {"id": 0, "p": 1, "s": 0, "e": 200,
+                                                  "fps": 2.5, "tag": [2, []]}}) + "\n")
+                    for p, (x0, y0, vy) in ((1, (0.0, 0.0, 0.4)), (2, (0.05, 6.4, -0.4))):
+                        for t, fr in enumerate(frames):
+                            f.write(json.dumps({"track": {"f": fr, "p": p, "x": x0,
+                                                          "y": round(y0 + vy * t, 2)}}) + "\n")
+            counters.zero()
+            gate_card = collision_gate.main(["--path", "synth_par", "--output", "p6.pkl",
+                                             "--device", DEVICE])
+            gate_launches = counters.read({"fused_dlstm_step": 19})
+            os.rename("DATA_BLOCK/synth_par/gate_pred", "gate_pred_card")
+            os.remove("DATA_BLOCK/synth_par/collision_gate.json")
+            gate_cpu = collision_gate.main(["--path", "synth_par", "--output", "p6.pkl",
+                                            "--device", "cpu"])
+            if gate_card != gate_cpu:
+                raise AssertionError(f"collision_gate on the card {gate_card}, on the CPU "
+                                     f"{gate_cpu}")
+            say("parallel_gate", gate=gate_card, launches=gate_launches, cpu=gate_cpu, card=card)
+
+            # (e) profile_train on the card: the trace holds the grid stage
+            counters.zero()
+            trace = profile_train.main(["--device", DEVICE, "--steps", "2",
+                                        "--trace_dir", "profile_trace"])
+            profile_launches = counters.read({"directional_grid": 19 * 3})
+            with open(trace) as f:
+                events = json.load(f)["traceEvents"]
+            kernel_events = sum(GRID_KERNEL in e.get("name", "") for e in events)
+            if kernel_events == 0:
+                raise AssertionError(f"the profile_train trace holds no {GRID_KERNEL}")
+            say("parallel_profile", trace_events=len(events),
+                directional_grid_kernel_events=kernel_events, launches=profile_launches,
+                card=card)
+        finally:
+            os.chdir(cwd)
+    seconds = time.perf_counter() - t_phase
+    say("parallel", seconds=seconds, ranks_seconds=ranks_s, card=card)
+    rank0 = {k: sum(ranks[0][run]["launches"][k] for run in ("dp", "tp", "ensemble", "rollout",
+                                                               "serve"))
+             for k in ("fused_dlstm_step", "directional_grid")}
+    return {"launches": rank0, "totals": counters.totals, "seconds": seconds}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="OUT_DIR", default=None,
                         help="also run the profile phase, writing its tables here")
+    parser.add_argument("--rank-run", metavar="OUT_DIR", default=None,
+                        help="run as one rank of phase 11 under torch.distributed.run")
     opts = parser.parse_args()
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1892,6 +2350,8 @@ def main() -> int:
     if not (REPO / "trajnetplusplusbaselines_torch" / "csrc").is_dir():
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 2
+    if opts.rank_run:
+        return rank_main(opts.rank_run)
     sys.path.insert(0, str(REPO))
 
     from trajnetplusplusbaselines_torch.evaluator import lstm_cli
@@ -2137,6 +2597,11 @@ def main() -> int:
     options = training_options_phase(dev, np.random.default_rng(11), card)
     phase10_s = time.perf_counter() - t10
 
+    # ---- 11: two ranks on the card: --dp / --tp training, the ensemble at
+    # --dp 2, the sharded rollout and lstm_cli over two ranks; collision_gate
+    # and profile_train
+    parallel = parallel_phase(dev, np.random.default_rng(12), card, train["predictor"])
+
     # ---- profile (optional): larger rollouts and profiler tables
     if opts.profile:
         out = Path(opts.profile)
@@ -2219,13 +2684,14 @@ def main() -> int:
                                kernel="directional_grid_kernel"))
 
     say("seconds", script=time.perf_counter() - started, classical=classical["seconds"],
-        training_options=phase10_s, card=card)
+        training_options=phase10_s, parallel=parallel["seconds"], card=card)
     main_s, main_a = ROLLOUTS[0]
     main_device = device["shapes"][(main_s, main_a)]
     train_grid = device["grid"][(TRAIN_BATCH, 8)]
     csrc = "trajnetplusplusbaselines_torch/csrc/"
     runs = {"serve": main_launches, "train": train["launches"], "pools": pools["launches"],
-            "generative": generative["launches"], **options["launches"]}
+            "generative": generative["launches"], **options["launches"],
+            "parallel_rank0": parallel["launches"], "parallel": parallel["totals"]}
     by_path = {name: {run: counts.get(name, 0) for run, counts in runs.items()}
                for name in ("fused_dlstm_step", "directional_grid", "directional_grid_bf16")}
     bf16_row = bf16_grid["rows"][(TRAIN_BATCH, 8)]

@@ -181,8 +181,13 @@ def test_cli_writes_members_that_resume_sequentially(data_tree):
 
 
 def test_cli_refuses_tensor_parallelism(data_tree):
-    with pytest.raises(NotImplementedError, match="item 8"):
+    """--tp above 1 raises, as in JAX: the rule does not shard the stacked
+    [E, ...] leaves; --dp 2 in one process raises, naming the launch."""
+    with pytest.raises(ValueError, match="ensemble trainer supports --dp only"):
         ensemble.main(argv=[*TINY, "--tp", "2"])
+    with pytest.raises(RuntimeError, match="--nproc_per_node 2 -m "
+                                           "trajnetplusplusbaselines_torch.trainers.ensemble"):
+        ensemble.main(argv=[*TINY, "--dp", "2"])
     assert not os.path.exists("OUTPUT_BLOCK")  # refused before anything ran
 
 

@@ -10,6 +10,7 @@ tiny size: its pickle loads and serves through its CLI; and the default
 """
 
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -216,9 +217,12 @@ def test_trainer_default_device_refuses_to_run_on_the_cpu(tmp_path, monkeypatch,
 
 
 # the --bf16 case was a refusal until bf16 was ported; it keeps its id and
-# now trains an epoch of each trainer in bf16
+# now trains an epoch of each trainer in bf16.  --dp 2 was refused until
+# multi-device training was ported; it keeps its id, and in one process it
+# raises, naming the launch of each trainer's module.
 @pytest.mark.parametrize("flags,match", [pytest.param(["--bf16"], None, id="flags0-item 5"),
-                                         (["--dp", "2"], "item 8"),
+                                         pytest.param(["--dp", "2"], "torch.distributed.run",
+                                                      id="flags1-item 8"),
                                          (["--orbax"], "Do not port")])
 def test_trainers_refuse_what_is_not_ported(tmp_path, monkeypatch, flags, match):
     monkeypatch.chdir(tmp_path)
@@ -238,6 +242,13 @@ def test_trainers_refuse_what_is_not_ported(tmp_path, monkeypatch, flags, match)
             assert ckpt.load_predictor(out).model.compute_dtype is None
         return
     for module in (sgan_trainer, vae_trainer):
+        if "--dp" in flags:
+            launch = (f"--dp 2 --tp 1 takes 2 processes, and this run has 1: launch it as "
+                      f"python -m torch.distributed.run --standalone --nproc_per_node 2 "
+                      f"-m {module.__name__} --dp 2 --tp 1")
+            with pytest.raises(RuntimeError, match=re.escape(launch)):
+                module.main(argv=[*TINY, *flags])
+            continue
         with pytest.raises(NotImplementedError, match=match):
             module.main(argv=[*TINY, *flags])
     assert not os.path.exists(tmp_path / "OUTPUT_BLOCK")

@@ -16,7 +16,11 @@ grid stage as hand-written CUDA kernels (``ops/cuda/fused_step.py``,
 ``csrc/``); and the classical predictors (``models/classical``: constant
 velocity, the Kalman filter and social force folded over whole test sets
 on the device, ORCA on the host; ``evaluator.classical_cli``,
-``socialforce_eval``, ``tools.get_dest``).
+``socialforce_eval``, ``tools.get_dest``); multi-device training and
+serving over ``torch.distributed`` (``parallel``: ``--dp`` / ``--tp`` in
+the trainers, the multi-process evaluator); and the tools (``tools``).
+Only ``tools/eval_reference_checkpoint.py`` is not ported: it drives the
+reference implementation, which is not in the repository.
 """
 
 __version__ = "0.1.0"

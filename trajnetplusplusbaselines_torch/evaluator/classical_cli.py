@@ -5,7 +5,9 @@ same flags, less ``--cpu``, plus ``--device`` (default ``cuda``).  Constant
 velocity, the Kalman filter and social force predict each test dataset in
 one ``predict_dataset`` on that device; ORCA runs on the host, scene by
 scene.  With ``--device cuda`` and no card the CLI raises: nothing runs on
-the CPU instead.
+the CPU instead.  Under ``torch.distributed.run`` each rank predicts its
+share of the test datasets on its own device and rank 0 scores
+(``evaluator/driver.py``).
 
 Usage:
     python -m trajnetplusplusbaselines_torch.evaluator.classical_cli \
@@ -16,6 +18,7 @@ import argparse
 import os
 
 from ..models.classical import constant_velocity, device_of, kalman, orca, socialforce
+from ..parallel.multihost import barrier, init_from_env, process_info
 from .driver import ensure_data_block, run_evaluation
 
 
@@ -87,6 +90,7 @@ def main(argv=None):
                         help="torch device of CV, KF and SF (cuda, cuda:N or cpu); "
                              "ORCA runs on the host")
     args = parser.parse_args(argv)
+    args.device = init_from_env(device_of(args.device))
 
     predictors = build_predictors(args)
     if not predictors:
@@ -94,8 +98,9 @@ def main(argv=None):
 
     dataset = args.path
     args.path = "DATA_BLOCK/" + args.path + "/test_pred/"
-    if args.data_root:
+    if args.data_root and process_info()[0] == 0:
         ensure_data_block(args.data_root, "DATA_BLOCK", [dataset])
+    barrier()
 
     # the evaluator derives folder names from args.output
     args.output = ["/" + name.replace("_modes" + str(args.modes), "") + ".pkl"

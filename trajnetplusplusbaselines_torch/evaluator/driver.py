@@ -1,15 +1,22 @@
-"""Prediction + evaluation driver, single process.
+"""Prediction + evaluation driver.
 
-Port of ``trajnetplusplusbaselines_tpu/evaluator/driver.py`` without its
-multi-host branch (that one imports jax): ``ensure_data_block``,
-``list_test_datasets``, ``get_predictions`` and ``run_evaluation``.
-Writing and scoring are the port's copies of the JAX package's numpy-only
-``write_utils`` and ``trajnet_evaluate``.  Skip-if-exists caching,
-``--fill_missing`` and ``--write_only`` behave as there, and a predictor
-whose ``goal_flag`` is set gets the goals of
+Port of ``trajnetplusplusbaselines_tpu/evaluator/driver.py``:
+``ensure_data_block``, ``list_test_datasets``, ``get_predictions`` and
+``run_evaluation``.  Writing and scoring are the port's copies of the JAX
+package's numpy-only ``write_utils`` and ``trajnet_evaluate``.
+Skip-if-exists caching, ``--fill_missing`` and ``--write_only`` behave as
+there, and a predictor whose ``goal_flag`` is set gets the goals of
 ``goal_files/test_private/<dataset>.pkl``.  Unlike the JAX loader, a
 missing goal file raises, except for the synthetic ``collision_test`` gate,
 which ships none and takes zero goals.
+
+Under ``torch.distributed.run`` (a process group of more than one rank,
+``parallel.multihost``) each rank predicts its ``shard_items`` of the test
+datasets into ``<model>.tmp`` (a shared filesystem): rank 0 decides the
+skip and broadcasts it, cleans the temporary directory before a barrier,
+renames it after a second one, and a third holds every rank until the
+rename is published; scoring runs on rank 0 only.  ``--fill_missing`` is a
+single-process mode and raises under several ranks.
 """
 
 import os
@@ -19,6 +26,7 @@ from typing import Callable, Dict, List
 
 import numpy as np
 
+from ..parallel.multihost import barrier, broadcast_from_zero, process_info, shard_items
 from .trajnet_evaluator import trajnet_evaluate
 from .write_utils import load_test_datasets, preprocess_test, write_predictions
 
@@ -82,9 +90,13 @@ def get_predictions(predictors: Dict[str, Callable], args) -> None:
 
     predictors: {model_name: fn(paths, scene_goal) -> {mode: (primary,
     neighs)}}, or objects with ``predict_dataset`` for batched prediction.
+    Several ranks: each predicts its share of the datasets (see the module).
     """
+    rank, world = process_info()
     datasets = list_test_datasets(args.path)
     fill_missing = getattr(args, "fill_missing", False)
+    if fill_missing and world > 1:
+        raise ValueError("--fill_missing is a single-process backfill mode")
 
     for model_name, predictor in predictors.items():
         model_dir = os.path.join(args.path, model_name)
@@ -96,21 +108,26 @@ def get_predictions(predictors: Dict[str, Callable], args) -> None:
             if not todo:
                 print(f"Predictions corresponding to {model_name} already exist.")
                 continue
-        elif os.path.exists(model_dir):
+        # rank 0 decides and broadcasts: the others' view of the shared
+        # filesystem may lag its rename, and a rank that skipped would leave
+        # the rest waiting in the barriers below
+        elif broadcast_from_zero(os.path.exists(model_dir)):
             print(f"Predictions corresponding to {model_name} already exist.")
             print("Loading the saved predictions")
             continue
         # write into a temp dir and rename at the end: an interrupted run must
         # not leave a partial dir that the skip-if-exists cache would trust
         tmp_dir = model_dir + ".tmp"
-        if os.path.exists(tmp_dir):
-            shutil.rmtree(tmp_dir)
-        os.makedirs(tmp_dir)
+        if rank == 0:
+            if os.path.exists(tmp_dir):
+                shutil.rmtree(tmp_dir)
+            os.makedirs(tmp_dir)
+        barrier()  # rank 0's clean-up before anyone writes
 
         # per predictor, as the JAX driver resolves it: only a goal model
         # makes the driver read goal files
         goal_flag = getattr(predictor, "goal_flag", getattr(args, "goal_flag", False))
-        for dataset in todo:
+        for dataset in shard_items(todo):
             dataset_name, scenes, processed, scene_goals = test_scenes(dataset, args, goal_flag)
             if hasattr(predictor, "predict_dataset"):
                 pred_list = predictor.predict_dataset(processed, scene_goals, args)
@@ -123,12 +140,17 @@ def get_predictions(predictors: Dict[str, Callable], args) -> None:
             for f in os.listdir(tmp_dir):
                 os.replace(os.path.join(tmp_dir, f), os.path.join(model_dir, f))
             os.rmdir(tmp_dir)
-        else:
+            continue
+        barrier()  # every rank's predictions are written
+        if rank == 0:
             os.rename(tmp_dir, model_dir)
+        barrier()  # no rank goes on (into scoring) before the rename
 
 
 def run_evaluation(predictors: Dict[str, Callable], args):
+    """Predict (``get_predictions``) and score; with several ranks rank 0
+    scores the whole prediction tree and the others return None."""
     get_predictions(predictors, args)
-    if getattr(args, "write_only", False):
+    if getattr(args, "write_only", False) or process_info()[0] != 0:
         return None
     return trajnet_evaluate(args)

@@ -4,10 +4,16 @@ Port of ``trajnetplusplusbaselines_tpu/evaluator/lstm_cli.py`` with the same
 flags, less ``--cpu``, plus ``--device`` (default ``cuda``).  Predictor
 pickles of either package load without jax.  The CLI never runs on another
 device than the one asked for: with ``--device cuda`` and no card it raises.
+Under ``torch.distributed.run`` each rank serves its share of the test
+datasets on its own card (``parallel.multihost.init_from_env``) and rank 0
+scores (``evaluator/driver.py``).
 
 Usage:
     python -m trajnetplusplusbaselines_torch.evaluator.lstm_cli \
         --path trajdata_split --output OUTPUT_BLOCK/trajdata_split/lstm_directional.pkl
+    python -m torch.distributed.run --standalone --nproc_per_node 2 \
+        -m trajnetplusplusbaselines_torch.evaluator.lstm_cli --path trajdata_split \
+        --output OUTPUT_BLOCK/trajdata_split/lstm_directional.pkl
 """
 
 import argparse
@@ -15,6 +21,7 @@ import os
 
 import torch
 
+from ..parallel.multihost import barrier, init_from_env, process_info
 from ..utils.checkpoint import load_predictor
 from .driver import ensure_data_block, run_evaluation
 from .learned import BatchedPredictor
@@ -45,11 +52,13 @@ def main(argv=None):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device} asked for, but CUDA is not available")
+    device = init_from_env(device)
 
     dataset = args.path
     args.path = "DATA_BLOCK/" + args.path + "/test_pred/"
-    if args.data_root:
+    if args.data_root and process_info()[0] == 0:
         ensure_data_block(args.data_root, "DATA_BLOCK", [dataset])
+    barrier()
     os.makedirs(args.path, exist_ok=True)
 
     predictors = {}

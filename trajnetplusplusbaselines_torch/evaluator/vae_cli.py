@@ -3,7 +3,8 @@
 Port of ``trajnetplusplusbaselines_tpu/evaluator/vae_cli.py``: the model is
 told apart when its pickle loads, so this is the shared driver of
 ``lstm_cli``, with its flags (``--modes``, ``--device``, default ``cuda``),
-kept for command-line parity.
+kept for command-line parity; under ``torch.distributed.run`` its ranks
+share the test datasets as ``lstm_cli``'s do.
 
 Usage:
     python -m trajnetplusplusbaselines_torch.evaluator.vae_cli \

@@ -29,15 +29,26 @@ Port of the host parts of ``trajnetplusplusbaselines_tpu/trainers/common.py``
   the JAX package's ``--bf16`` runs it, f32 masters and optimizer state,
   the forward and backward in the model's compute dtype, losses in f32, and
   predictor pickles saved with compute dtype None;
-- ``step_lr`` and the JSON logging that ``tools/plot_log.read_log`` reads.
+- ``step_lr`` and the JSON logging that ``tools/plot_log.read_log`` reads;
+- the mesh helpers (``parallel/mesh.py``): ``validate_mesh_batch``,
+  ``place_plan_on_mesh`` (every rank's epoch plan, held to rank 0's by an
+  order-sensitive digest), ``replicate_on_mesh``, ``shard_carry_on_mesh``,
+  and ``EpochLoop``'s part of them: each rank runs its scene rows of every
+  batch, gathers the outputs, scores the whole batch and sums its gradients
+  over ``data``; under tensor parallelism it holds its column blocks of the
+  split leaves and their Adam moments, rebuilds the full leaves for the
+  forward, clips by the norm over the model group, and checkpoints the full
+  leaves from rank 0.  The resident datasets need no placing: every rank
+  holds them whole on its device, as JAX's ``ResidentDataset.place``
+  replicates them, and draws the same augmentation for them.
 
 The lax-scan chunking (``chunk_sizes_for`` splits a group into scan chunks,
-which changes nothing when one step is applied per batch in order), the
-compile cache and the mesh helpers exist only for the TPU toolchain and are
-not ported.
+which changes nothing when one step is applied per batch in order) and the
+compile cache exist only for the TPU toolchain and are not ported.
 """
 
 import copy
+import hashlib
 import json
 import logging
 import socket
@@ -50,6 +61,8 @@ import torch
 from torch.utils._pytree import tree_map
 
 from ..data import Reader, augmentation, batching
+from ..parallel.mesh import gather_params, local_block, param_shardings, shard_params
+from ..parallel.multihost import all_processes_agree
 
 NOISE_THRESH = 0.02  # --augment_noise: uniform noise bound in metres
 
@@ -221,10 +234,68 @@ def packed_batch(packed: batching.PackedScenes, device) -> Batch:
 class EpochLoop:
     """What the trainers' epochs share: each dataset made resident on the
     trainer's ``device`` once, its batches (augmented from ``generator``),
-    the epoch loop with its checkpoints, and the train log records.  A
-    trainer sets ``device``, ``generator``, ``batch_size``, ``obs_length``,
-    ``save_every``, ``val_flag``, ``log`` and ``_resident = {}``, and has
-    ``train``, ``val`` and ``save_checkpoint``."""
+    the epoch loop with its checkpoints, the train log records, and the
+    trainer's part of a mesh (``attach_mesh``).  A trainer sets ``device``,
+    ``generator``, ``batch_size``, ``obs_length``, ``save_every``,
+    ``val_flag``, ``log`` and ``_resident = {}``, and has ``train``,
+    ``val`` and ``save_checkpoint``."""
+
+    mesh = None  # one process
+    shardings: Dict = {}
+
+    # ------------------------------------------------------------------ mesh
+    def attach_mesh(self, mesh, params, batch_size: int):
+        """Train on ``mesh`` (None: one process); returns this rank's blocks
+        of the full ``params``."""
+        self.mesh = mesh
+        if mesh is None:
+            return params
+        validate_mesh_batch(mesh, batch_size)
+        self.shardings = param_shardings(mesh, params)
+        return shard_carry_on_mesh(mesh, params)
+
+    @property
+    def writes(self) -> bool:
+        """Whether this rank writes checkpoints (rank 0, or one process)."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _rows(self, x, dim: int):
+        """This rank's scene rows of ``x`` along ``dim``."""
+        return x if self.mesh is None else self.mesh.scene_rows(x, dim)
+
+    def _gather(self, x, dim: int):
+        """Every rank's scene rows of ``x`` along ``dim``, autograd keeping
+        this rank's."""
+        return x if self.mesh is None else self.mesh.gather_scenes(x, dim)
+
+    def _full(self, params, autograd: bool = True):
+        """The full params from this rank's blocks (``shardings`` paths
+        from the root of ``self.params``)."""
+        if self.mesh is None or self.mesh.shape["model"] == 1:
+            return params
+        return gather_params(self.mesh, params, self.shardings, autograd)
+
+    def _summed(self, grads):
+        """The rank's gradients summed over ``data``: the whole batch's."""
+        return list(grads) if self.mesh is None else self.mesh.sum_over_data(grads)
+
+    def _split(self, paths, prefix: str = ""):
+        """Per path, whether the leaf is split over ``model``."""
+        return [self.shardings[prefix + p].split if self.shardings else False for p in paths]
+
+    def _full_adam_state(self, optimizer, paths, prefix: str = "") -> Dict:
+        """``adam_state_to_numpy`` with the split leaves' moments gathered
+        over ``model``: the one-process state."""
+        split = dict(zip(paths, self._split(paths, prefix)))
+        return adam_state_to_numpy(optimizer, paths, gather=lambda path, x: (
+            self.mesh.gather_columns(x, autograd=False) if split[path] else x))
+
+    def _block(self, prefix: str = ""):
+        """fn(path, array): this rank's block of a full array of leaf
+        ``path`` (``restore_optimizer``'s ``block``)."""
+        if not self.shardings:
+            return None
+        return lambda path, arr: local_block(self.shardings[prefix + path], arr)
 
     def _get_resident(self, scenes):
         # keyed by id, with a strong reference so a freed object's reused
@@ -235,6 +306,7 @@ class EpochLoop:
 
     def _batches(self, resident, plan, augment=False, augment_noise=False):
         for key, (idx, valid) in plan.items():
+            idx, valid = place_plan_on_mesh(self.mesh, idx, valid)
             yield from bucket_batches(resident.buckets[key], idx, valid, augment=augment,
                                       augment_noise=augment_noise,
                                       obs_length=self.obs_length, generator=self.generator)
@@ -294,7 +366,8 @@ def make_optimizer(leaves: Sequence[torch.Tensor], lr: float = 1e-3,
 
 
 def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float,
-                        members: bool = False) -> List[torch.Tensor]:
+                        members: bool = False, split: Optional[Sequence[bool]] = None,
+                        mesh=None) -> List[torch.Tensor]:
     """optax's ``clip_by_global_norm``: every gradient becomes
     ``(g / norm) * max_norm`` where the global norm is at least ``max_norm``.
     (``torch.nn.utils.clip_grad_norm_`` divides by ``norm + 1e-6`` instead.)
@@ -302,8 +375,15 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float,
     has its own norm, as if clipped alone.  Decided on the device, with no
     host sync.  Returns new tensors: autograd may hand one tensor to two
     leaves (``b_ih`` and ``b_hh`` reach the loss through their sum), so
-    scaling in place would scale it twice."""
-    if members:
+    scaling in place would scale it twice.  Under tensor parallelism
+    (``split`` flags the leaves this rank holds a column block of, ``mesh``
+    their model group) the split leaves' squares are summed over the model
+    group, each once, and the replicated leaves' counted once."""
+    if split is not None and any(split):
+        own = sum(torch.sum(g * g) for g, s in zip(grads, split) if s)
+        rest = sum(torch.sum(g * g) for g, s in zip(grads, split) if not s)
+        norm = [torch.sqrt(mesh.sum_over_model(own) + rest)] * len(grads)
+    elif members:
         norm = torch.sqrt(sum(torch.sum((g * g).flatten(1), dim=1) for g in grads))  # [E]
         norm = [norm.reshape(-1, *[1] * (g.dim() - 1)) for g in grads]
     else:
@@ -313,12 +393,14 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float,
 
 def optimizer_step(optimizer: torch.optim.Optimizer, leaves: Sequence[torch.Tensor],
                    grads: Sequence[torch.Tensor], clip_grad: Optional[float] = None,
-                   members: bool = False) -> None:
+                   members: bool = False, split: Optional[Sequence[bool]] = None,
+                   mesh=None) -> None:
     """One step of ``optimizer`` on ``leaves`` with ``grads``, clipped by
     their global norm first where ``clip_grad`` is set (per member of
-    stacked leaves with ``members``)."""
+    stacked leaves with ``members``; over the model group for the ``split``
+    leaves of a ``mesh``)."""
     if clip_grad:
-        grads = clip_by_global_norm(grads, clip_grad, members)
+        grads = clip_by_global_norm(grads, clip_grad, members, split, mesh)
     for leaf, grad in zip(leaves, grads):
         leaf.grad = grad
     optimizer.step()
@@ -371,14 +453,17 @@ def step_lr(lr: float, step_size: Optional[int], gamma: float = 0.1):
     return schedule
 
 
-def adam_state_to_numpy(optimizer: torch.optim.Adam, paths: Sequence[str]) -> Dict:
+def adam_state_to_numpy(optimizer: torch.optim.Adam, paths: Sequence[str],
+                        gather=None) -> Dict:
     """The Adam moments as numpy, keyed by parameter path:
     ``{path: {"step", "exp_avg", "exp_avg_sq"}}`` (paths in the optimizer's
-    parameter order).  A parameter not stepped yet has no entry."""
+    parameter order), each moment passed through ``gather(path, tensor)``
+    where given.  A parameter not stepped yet has no entry."""
     state = optimizer.state_dict()["state"]
+    gather = gather or (lambda path, x: x)
     return {path: {"step": float(state[i]["step"]),
-                   "exp_avg": state[i]["exp_avg"].detach().cpu().numpy(),
-                   "exp_avg_sq": state[i]["exp_avg_sq"].detach().cpu().numpy()}
+                   **{k: gather(path, state[i][k].detach()).cpu().numpy()
+                      for k in ("exp_avg", "exp_avg_sq")}}
             for i, path in enumerate(paths) if i in state}
 
 
@@ -397,6 +482,49 @@ def adam_state_from_numpy(optimizer: torch.optim.Adam, paths: Sequence[str],
     optimizer.load_state_dict(sd)
 
 
+# ----------------------------------------------------------------------- mesh
+def validate_mesh_batch(mesh, batch_size: int) -> None:
+    """Mesh batches shard scene-wise: batch_size must divide over 'data'."""
+    if mesh is not None and batch_size % mesh.shape["data"] != 0:
+        raise ValueError(f"batch_size {batch_size} must divide over data axis "
+                         f"{mesh.shape['data']}")
+
+
+def _agree_or_raise(mesh, *arrays, what: str) -> None:
+    """Raise unless every rank of ``mesh`` holds the same ``arrays``: an
+    order-sensitive sha256 of their bytes, all-gathered.  A check that
+    survives ``python -O``, not an assert."""
+    if mesh is None:
+        return
+    h = hashlib.sha256(b"".join(np.ascontiguousarray(a).tobytes() for a in arrays)).digest()
+    if not all_processes_agree(np.frombuffer(h[:16], dtype=np.uint8)):
+        raise RuntimeError(f"{what} differs across processes (seed drift?)")
+
+
+def place_plan_on_mesh(mesh, idx: np.ndarray, valid: np.ndarray):
+    """An epoch plan's ``[nb, S]`` index and valid arrays on ``mesh``:
+    every rank keeps the whole plan (each builds the same one from the same
+    seed, and runs its rows of each batch), after a digest check that turns
+    a rank's drift into an error instead of a silently wrong gather (a sum
+    would miss a reordering).  ``mesh`` None: the plan as it is."""
+    _agree_or_raise(mesh, idx, valid, what="epoch plan")
+    return idx, valid
+
+
+def replicate_on_mesh(mesh, arr) -> np.ndarray:
+    """A per-batch host array (flags) that every rank holds whole, checked
+    to be the same on every rank of ``mesh``."""
+    arr = np.asarray(arr)
+    _agree_or_raise(mesh, arr, what="per-batch flags")
+    return arr
+
+
+def shard_carry_on_mesh(mesh, tree):
+    """The tensor-parallel rule (``parallel/mesh.py``) applied to a params
+    or optimizer tree: this rank's block of each split leaf."""
+    return shard_params(mesh, tree)
+
+
 # -------------------------------------------------------------------- logging
 class JsonFormatter(logging.Formatter):
     """Single-line JSON records."""
@@ -412,10 +540,15 @@ class JsonFormatter(logging.Formatter):
         return json.dumps(payload)
 
 
-def setup_logging(output: str, append: bool = False) -> None:
+def setup_logging(output: str, append: bool = False, rank: int = 0) -> None:
+    """JSON records to ``output.log`` and stdout; a rank other than 0 of a
+    multi-process run logs warnings only, and to stdout."""
+    stdout_handler = logging.StreamHandler(sys.stdout)
+    if rank != 0:
+        logging.basicConfig(level=logging.WARNING, handlers=[stdout_handler], force=True)
+        return
     file_handler = logging.FileHandler(output + ".log", mode="a" if append else "w")
     file_handler.setFormatter(JsonFormatter())
-    stdout_handler = logging.StreamHandler(sys.stdout)
     logging.basicConfig(level=logging.INFO, handlers=[stdout_handler, file_handler], force=True)
 
 

@@ -37,12 +37,16 @@ The members are folded into one step:
 
 Validation is each member's teacher-forced loss, as the JAX ensemble
 validates.  As in the JAX module the ensemble does not read ``--col_wt``,
-``--start_length`` or ``--obs_dropout``.  ``--dp`` / ``--tp`` above 1 and
-``--orbax`` are refused as the LSTM trainer refuses them.
+``--start_length`` or ``--obs_dropout``.  ``--dp`` shards the scene axis of
+the stacked ``[T, E, S, A, 2]`` batch as the LSTM trainer shards a batch
+(each member's draws made whole on every rank; each rank's vmapped step
+still folds the members into one grid-stage launch); ``--tp`` above 1
+raises, as in JAX (the rule does not shard the stacked ``[E, ...]``
+leaves).  ``--orbax`` is refused as the LSTM trainer refuses it.
 
 A ``torch.cuda.OutOfMemoryError`` (matched by type) splits the members into
 chunks of ceil(E / 2) and the rest, each retrained in a subprocess of this
-module (``--no_autosplit`` raises instead).
+module (``--no_autosplit`` raises instead; so does a multi-process run).
 
 Usage:
     python -m trajnetplusplusbaselines_torch.trainers.ensemble --path trajdata \
@@ -68,12 +72,12 @@ from .. import __version__ as VERSION
 from ..losses import l2_loss, prediction_loss
 from ..models.lstm import LSTM, Inputs, LSTMPredictor, StepCarry
 from ..ops.pooling import make_pool
+from ..parallel.multihost import process_info
 from ..utils import checkpoint as ckpt
 from ..utils.convert import params_to_numpy
 from .common import (
     Batch,
     EpochLoop,
-    adam_state_to_numpy,
     bucket_batches,
     cast_compute,
     f32_model,
@@ -82,11 +86,12 @@ from .common import (
     optimizer_step,
     outputs_f32,
     param_items,
+    place_plan_on_mesh,
     set_lr,
     setup_logging,
     step_lr,
 )
-from .lstm import add_arguments, check_device, configure, read_splits
+from .lstm import add_arguments, check_device, configure, join_ranks, read_splits, run_mesh
 
 
 def stack_params(members: List[Dict]) -> Dict:
@@ -111,10 +116,12 @@ class EnsembleTrainer(EpochLoop):
 
     def __init__(self, model: LSTM, stacked_params: Dict, lr_schedule, seeds,
                  criterion="pred", batch_size=8, obs_length=9, pred_length=12, augment=True,
-                 augment_noise=False, save_every=1, val_flag=True, clip_grad=None):
+                 augment_noise=False, save_every=1, val_flag=True, clip_grad=None, mesh=None):
+        if mesh is not None and mesh.shape["model"] != 1:
+            raise ValueError("ensemble trainer supports --dp only")
         self.model = model
-        self.params = stacked_params
-        self.paths, self.leaves = zip(*param_items(stacked_params))
+        self.params = self.attach_mesh(mesh, stacked_params, batch_size)
+        self.paths, self.leaves = zip(*param_items(self.params))
         for leaf in self.leaves:
             leaf.requires_grad_()
         self.device = self.leaves[0].device
@@ -211,16 +218,19 @@ class EnsembleTrainer(EpochLoop):
         return loss(rel[-self.pred_length:, :, 0], targets, scene_mask) * self.batch_size
 
     def member_losses(self, xy, mask, scene_mask, goals, slot_mask) -> torch.Tensor:
-        """Each member's teacher-forced loss of its batch, ``[E]``."""
-        rel, _, _ = self.forward(self.params, xy, mask, goals, slot_mask)
-        return torch.func.vmap(self._member_loss, in_dims=(1, 1, 0))(rel, xy, scene_mask)
+        """Each member's teacher-forced loss of its batch, ``[E]``; on a
+        mesh the rank rolls out its scenes and every rank's are gathered."""
+        rel, _, _ = self.forward(self.params, self._rows(xy, 2), self._rows(mask, 2),
+                                 self._rows(goals, 1), self._rows(slot_mask, 1))
+        return torch.func.vmap(self._member_loss, in_dims=(1, 1, 0))(self._gather(rel, 2), xy,
+                                                                      scene_mask)
 
     def loss_and_grads(self, xy, mask, scene_mask, goals, slot_mask):
         """(the members' losses [E], the gradient of their sum for every
         stacked leaf: each member's own gradient in its rows)."""
         losses = self.member_losses(xy, mask, scene_mask, goals, slot_mask)
         grads = torch.autograd.grad(losses.sum(), self.leaves, materialize_grads=True)
-        return losses.detach(), grads
+        return losses.detach(), self._summed(grads)
 
     def train_step(self, xy, mask, scene_mask, goals, slot_mask):
         """One optimizer step of every member on its batch (a stacked
@@ -238,6 +248,8 @@ class EnsembleTrainer(EpochLoop):
         resident = self._get_resident(scenes)
         plans = [resident.epoch_plan(self.batch_size, rng, shuffle=shuffle) for rng in self.rngs]
         for key in plans[0]:
+            for plan in plans:
+                place_plan_on_mesh(self.mesh, *plan[key])
             streams = [bucket_batches(resident.buckets[key], *plan[key], augment=augment,
                                       augment_noise=augment_noise, obs_length=self.obs_length,
                                       generator=gen)
@@ -255,6 +267,7 @@ class EnsembleTrainer(EpochLoop):
             scenes, True, self.augment, self.augment_noise)]
         losses = (torch.stack(losses, dim=1).cpu().numpy() if losses  # [E, nb]; sync point
                   else np.zeros((len(self.seeds), 0)))
+        self.epoch_losses = losses
         self.log.info({
             "type": "train-epoch",
             "epoch": epoch + 1,
@@ -292,9 +305,11 @@ class EnsembleTrainer(EpochLoop):
     def save_checkpoints(self, epoch: int, filenames: List[str]):
         """Each member's predictor pickle and sidecar, in the sequential
         trainer's format (its params, its rows of the Adam state), so that
-        ``trainers.lstm --load-full-state`` resumes it."""
+        ``trainers.lstm --load-full-state`` resumes it; rank 0 writes."""
+        if not self.writes:
+            return
         lr = float(self.lr_schedule(max(epoch - 1, 0)))
-        opt_state = adam_state_to_numpy(self.optimizer, self.paths)
+        opt_state = self._full_adam_state(self.optimizer, self.paths)
         model = f32_model(self.model)
         for i, filename in enumerate(filenames):
             params = member_params(self.params, i)
@@ -348,8 +363,8 @@ def run_chunks(argv, chunks, log):
 
 
 def train_members(args, device, outputs):
-    """Build the ensemble of ``args.seeds`` on ``device`` and train it;
-    returns the trainer."""
+    """Build the ensemble of ``args.seeds`` on ``device`` and train it (on
+    ``--dp`` ranks, this rank's part); returns the trainer."""
     pool = make_pool(args.type, args)
     model = configure(LSTM(pool=pool, embedding_dim=args.coordinate_embedding_dim,
                            hidden_dim=args.hidden_dim, goal_flag=args.goals,
@@ -361,7 +376,7 @@ def train_members(args, device, outputs):
         model, stacked, step_lr(args.lr, args.step_size), args.seeds, criterion=args.loss,
         batch_size=args.batch_size, obs_length=args.obs_length, pred_length=args.pred_length,
         augment=args.augment, augment_noise=args.augment_noise, save_every=args.save_every,
-        val_flag=val_flag, clip_grad=args.clip_grad)
+        val_flag=val_flag, clip_grad=args.clip_grad, mesh=run_mesh(args, device))
     trainer.loop(train_ds, val_ds, outputs, epochs=args.epochs)
     return trainer
 
@@ -380,6 +395,10 @@ def main(epochs=25, argv=None):
                              "member chunks in subprocesses")
     args = parser.parse_args(argv)
     device = check_device(args)
+    if args.tp > 1:
+        raise ValueError("ensemble trainer supports --dp only (members are vmapped over the "
+                         "stacked [E, ...] param layout, which the TP rule does not shard)")
+    device = join_ranks(args, device, "trajnetplusplusbaselines_torch.trainers.ensemble")
 
     random.seed(args.seeds[0])
     np.random.seed(args.seeds[0])
@@ -387,14 +406,15 @@ def main(epochs=25, argv=None):
     os.makedirs(f"OUTPUT_BLOCK/{args.path}", exist_ok=True)
     outputs = [f"OUTPUT_BLOCK/{args.path}/{prefix}_{args.type}_seed{s}{args.suffix}.pkl"
                for s in args.seeds]
-    setup_logging(outputs[0].replace(".pkl", "_ensemble.pkl"))
+    setup_logging(outputs[0].replace(".pkl", "_ensemble.pkl"), rank=process_info()[0])
     log_process_record(args, VERSION)
 
     log = logging.getLogger("EnsembleTrainer")
     try:
         return train_members(args, device, outputs)
     except Exception as exc:  # pylint: disable=broad-except
-        if args.no_autosplit or len(args.seeds) < 2 or not is_resource_failure(exc):
+        if (args.no_autosplit or len(args.seeds) < 2 or not is_resource_failure(exc)
+                or process_info()[1] > 1):
             raise
         chunks = split_members(args.seeds)
         log.warning({"type": "ensemble-autosplit", "reason": repr(exc)[:500],

@@ -40,13 +40,25 @@ The JAX trainer's training options:
   ``start_length``), each ``start_length`` logged; validation starts at 0.
 - ``--load-full-state`` of a JAX sidecar: its optax Adam state converted
   (``utils/checkpoint.adam_state_from_optax``), resumed from its epoch.
+- ``--dp`` / ``--tp``: one process per rank, ``dp * tp`` of them, launched
+  by ``python -m torch.distributed.run`` (``join_ranks``; NCCL where each
+  rank has a card, gloo where ranks share one).  Every rank builds the same
+  epoch plan and augmentation, runs its ``batch_size / dp`` scenes of each
+  batch, gathers the outputs and scores the whole batch, so the loss is the
+  one-process loss; the gradients sum over ``data``.  Under ``--tp`` a rank
+  holds the column blocks of the leaves JAX's rule splits, with their Adam
+  moments, and the forward gathers the full leaves.  Rank 0 logs and writes
+  the checkpoints, full leaves and moments, as one process writes them.
+  ``--obs_dropout`` with a mesh raises (the host path is single-device).
 
-Refused, with the ROADMAP item that ports them: ``--dp`` / ``--tp`` above 1.
 ``--orbax`` is refused for good (ROADMAP, "Do not port").
 
 Usage:
     python -m trajnetplusplusbaselines_torch.trainers.lstm --path trajdata \
         --type directional --epochs 25 --device cuda
+    python -m torch.distributed.run --standalone --nproc_per_node 2 \
+        -m trajnetplusplusbaselines_torch.trainers.lstm --path trajdata \
+        --type directional --dp 2 --tp 1 --device cuda
 """
 
 import argparse
@@ -63,13 +75,14 @@ from ..data.load import prepare_data
 from ..losses import collision_loss, l2_loss, prediction_loss
 from ..models.lstm import LSTM, LSTMPredictor
 from ..ops.pooling import POOL_TYPES, make_pool
+from ..parallel.mesh import make_mesh
+from ..parallel.multihost import init_from_env, process_info
 from ..utils import checkpoint as ckpt
 from ..utils.convert import params_from_jax, params_to_numpy
 from .common import (
     EpochLoop,
     SceneDataset,
     adam_state_from_numpy,
-    adam_state_to_numpy,
     cast_compute,
     f32_model,
     group_batches,
@@ -85,19 +98,30 @@ from .common import (
 )
 
 
+# the scene axis of ``LSTM.forward``'s (and ``VAE.forward``'s) tensor arguments
+SCENE_DIMS = {"prediction_truth": 1, "prediction_truth_mask": 1, "goals": 0, "slot_mask": 0,
+              "eps": 1}
+
+
 class Trainer(EpochLoop):
     """Trains an ``LSTM`` whose params (a nested dict of tensors in the JAX
     layout) live on one device; the leaves are trained in place."""
 
     predictor_class = LSTMPredictor  # what ``save_checkpoint`` pickles
+    # the scene axis of each forward output: rel_pred, pred, valid [T', S, A, ...]
+    output_scene_dims = (1, 1, 1)
 
     def __init__(self, model, params, lr_schedule, criterion="pred", batch_size=8,
                  obs_length=9, pred_length=12, augment=True, save_every=1, start_length=0,
                  augment_noise=False, val_flag=True, col_wt=0.0, col_distance=0.2, seed=42,
-                 clip_grad=None, obs_dropout=False):
+                 clip_grad=None, obs_dropout=False, mesh=None):
+        if mesh is not None and obs_dropout:
+            raise ValueError("--obs_dropout uses the chunked host path, which is "
+                             "single-device; drop --dp/--tp")
         self.model = model
-        self.params = params
-        self.paths, self.leaves = zip(*param_items(params))
+        self.params = self.attach_mesh(mesh, params, batch_size)
+        self.paths, self.leaves = zip(*param_items(self.params))
+        self.split = self._split(self.paths)
         for leaf in self.leaves:
             leaf.requires_grad_()
         self.device = self.leaves[0].device
@@ -123,6 +147,7 @@ class Trainer(EpochLoop):
         self.rng = np.random.default_rng(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
         self._resident = {}
+        self.epoch_losses = np.zeros(0)  # the last epoch's per-batch losses
 
     @property
     def compute_dtype(self):
@@ -153,11 +178,16 @@ class Trainer(EpochLoop):
 
     def _forward(self, params, xy, mask, start_length, **kwargs):
         """``LSTM.forward`` of ``xy[start_length:obs_length]`` in the compute
-        dtype, its outputs in f32."""
+        dtype, its outputs in f32; on a mesh, of this rank's scenes, with
+        every rank's outputs gathered (``output_scene_dims``)."""
         dtype = self.compute_dtype
-        return outputs_f32(self.model.forward(
-            cast_compute(params, dtype), xy[start_length:self.obs_length],
-            mask[start_length:self.obs_length], **kwargs), dtype)
+        kwargs = {k: self._rows(v, SCENE_DIMS[k]) if k in SCENE_DIMS else v
+                  for k, v in kwargs.items()}
+        out = outputs_f32(self.model.forward(
+            cast_compute(self._full(params), dtype),
+            self._rows(xy[start_length:self.obs_length], 1),
+            self._rows(mask[start_length:self.obs_length], 1), **kwargs), dtype)
+        return tuple(self._gather(x, d) for x, d in zip(out, self.output_scene_dims))
 
     def _forward_train(self, params, xy, mask, start_length, goals, slot_mask):
         return self._forward(params, xy, mask, start_length,
@@ -176,25 +206,30 @@ class Trainer(EpochLoop):
         rel, pred, valid = self._forward_train(self.params, xy, mask, sl, goals, slot_mask)
         loss = self._loss_from_outputs(rel, pred, valid, xy, mask, scene_mask)
         grads = torch.autograd.grad(loss, self.leaves, materialize_grads=True)
-        return loss.detach(), grads
+        return loss.detach(), self._summed(grads)
 
     def train_step(self, xy, mask, scene_mask, goals=None, slot_mask=None, start_length=None):
         """One optimizer step on one batch (a ``common.Batch``'s fields);
         returns the loss, on the device."""
         loss, grads = self.loss_and_grads(xy, mask, scene_mask, goals, slot_mask, start_length)
-        optimizer_step(self.optimizer, self.leaves, grads, self.clip_grad)
+        optimizer_step(self.optimizer, self.leaves, grads, self.clip_grad, split=self.split,
+                       mesh=self.mesh)
         return loss
 
     # ----------------------------------------------------------------- loops
     def save_checkpoint(self, epoch: int, filename: str):
+        """The predictor pickle and its ``.state`` sidecar, full leaves and
+        moments (gathered on a mesh), written by rank 0."""
+        params = self._full(self.params, autograd=False)
         state = {
             "epoch": epoch,
-            "params": params_to_numpy(self.params),
+            "params": params_to_numpy(params),
             "opt_state_hyper": {"learning_rate": float(self.lr_schedule(max(epoch - 1, 0)))},
-            "opt_state": adam_state_to_numpy(self.optimizer, self.paths),
+            "opt_state": self._full_adam_state(self.optimizer, self.paths),
         }
-        ckpt.save_predictor(self.predictor_class(f32_model(self.model), self.params), filename,
-                            state)
+        if self.writes:
+            ckpt.save_predictor(self.predictor_class(f32_model(self.model), params), filename,
+                                state)
 
     def get_lr(self, epoch: int) -> float:
         return float(self.lr_schedule(epoch))
@@ -216,6 +251,7 @@ class Trainer(EpochLoop):
             losses = [self.train_step(*batch) for batch in
                       self._batches(resident, plan, self.augment, self.augment_noise)]
         losses = torch.stack(losses).cpu().numpy() if losses else np.zeros(0)  # sync point
+        self.epoch_losses = losses
         self.log_train(scenes, epoch, losses, start_time, lr,
                        data_time=round(data_time / max(len(losses), 1), 6))
 
@@ -293,8 +329,10 @@ def add_arguments(parser, default_epochs=25):
                         help="torch device to train on (cuda, cuda:N or cpu)")
 
     parallel = parser.add_argument_group("parallelism")
-    parallel.add_argument("--dp", type=int, default=1, help="not ported yet: only 1")
-    parallel.add_argument("--tp", type=int, default=1, help="not ported yet: only 1")
+    parallel.add_argument("--dp", type=int, default=1,
+                          help="data-parallel ranks (scenes of a batch split over them)")
+    parallel.add_argument("--tp", type=int, default=1,
+                          help="tensor-parallel ranks (wide weights split in column blocks)")
 
     pretrain = parser.add_argument_group("pretraining")
     pretrain.add_argument("--load-state", default=None)
@@ -329,14 +367,9 @@ def add_arguments(parser, default_epochs=25):
 
 def refuse_unported(args) -> None:
     """Raise on a flag whose path the port does not have, before anything runs."""
-    refused = [
-        (args.dp * args.tp > 1, "--dp / --tp above 1 are not ported yet (ROADMAP Queue 1 item 8)"),
-        (args.orbax, "--orbax is not ported: the port writes pickle sidecars only "
-                     "(ROADMAP, 'Do not port')"),
-    ]
-    for flag, message in refused:
-        if flag:
-            raise NotImplementedError(message)
+    if args.orbax:
+        raise NotImplementedError("--orbax is not ported: the port writes pickle sidecars only "
+                                  "(ROADMAP, 'Do not port')")
 
 
 def check_device(args) -> torch.device:
@@ -349,6 +382,30 @@ def check_device(args) -> torch.device:
     return device
 
 
+def join_ranks(args, device, module: str = "trajnetplusplusbaselines_torch.trainers.lstm"
+               ) -> torch.device:
+    """This rank's device: joins the process group ``torch.distributed.run``
+    started (``init_from_env``).  ``--dp * --tp`` must be the number of
+    processes; else it raises, naming the launch, before anything is
+    written."""
+    device = init_from_env(device)
+    world = process_info()[1]
+    if args.dp * args.tp != world:
+        n = args.dp * args.tp
+        raise RuntimeError(
+            f"--dp {args.dp} --tp {args.tp} takes {n} processes, and this run has {world}: "
+            f"launch it as python -m torch.distributed.run --standalone --nproc_per_node {n} "
+            f"-m {module} --dp {args.dp} --tp {args.tp} ...")
+    return device
+
+
+def run_mesh(args, device):
+    """The (dp, tp) mesh of the ranks ``join_ranks`` joined; None for one
+    process."""
+    world = process_info()[1]
+    return make_mesh(world, args.dp, args.tp, device) if world > 1 else None
+
+
 def open_run(args, prefix: str) -> None:
     """Seed the host's generators, name the output
     (``OUTPUT_BLOCK/<path>/<prefix>_<type>_<o>.pkl``, in ``args.output``),
@@ -359,7 +416,7 @@ def open_run(args, prefix: str) -> None:
     os.makedirs(f"OUTPUT_BLOCK/{args.path}", exist_ok=True)
     args.output = f"OUTPUT_BLOCK/{args.path}/{prefix}_{args.type}_{args.output}.pkl"
 
-    setup_logging(args.output, append=bool(args.load_full_state))
+    setup_logging(args.output, append=bool(args.load_full_state), rank=process_info()[0])
     log_process_record(args, VERSION)
 
     args.load_state_strict = True
@@ -399,12 +456,17 @@ def load_params(args, params, device):
     return params, state
 
 
-def restore_optimizer(optimizer, paths, opt_state) -> None:
+def restore_optimizer(optimizer, paths, opt_state, block=None) -> None:
     """``--load-full-state``: Adam's moments from a port sidecar, or from a
-    JAX sidecar's optax state (``ckpt.adam_state_from_optax``)."""
+    JAX sidecar's optax state (``ckpt.adam_state_from_optax``); with
+    ``block(path, array)`` (a tensor-parallel rank's ``EpochLoop._block``),
+    this rank's block of each moment."""
     print("Loading Optimizer Dict")
     if not ckpt.is_port_opt_state(opt_state):
         opt_state = ckpt.adam_state_from_optax(opt_state)
+    if block is not None:
+        opt_state = {path: {k: v if k == "step" else block(path, v) for k, v in s.items()}
+                     for path, s in opt_state.items()}
     adam_state_from_numpy(optimizer, paths, opt_state)
 
 
@@ -422,7 +484,8 @@ def main(epochs=25, argv=None):
     parser = argparse.ArgumentParser()
     add_arguments(parser, epochs)
     args = parser.parse_args(argv)
-    device = check_device(args)
+    device = join_ranks(args, check_device(args))
+    mesh = run_mesh(args, device)
     pool = make_pool(args.type, args)
     open_run(args, "lstm_goals" if args.goals else "lstm")
     train_ds, val_ds, val_flag = read_splits(args)
@@ -439,11 +502,11 @@ def main(epochs=25, argv=None):
         pred_length=args.pred_length, augment=args.augment, save_every=args.save_every,
         start_length=args.start_length, augment_noise=args.augment_noise,
         val_flag=val_flag, col_wt=args.col_wt, col_distance=args.col_distance,
-        seed=args.seed, clip_grad=args.clip_grad, obs_dropout=args.obs_dropout,
+        seed=args.seed, clip_grad=args.clip_grad, obs_dropout=args.obs_dropout, mesh=mesh,
     )
     start_epoch = 0
     if args.load_full_state:
-        restore_optimizer(trainer.optimizer, trainer.paths, state["opt_state"])
+        restore_optimizer(trainer.optimizer, trainer.paths, state["opt_state"], trainer._block())
         start_epoch = state["epoch"]
     trainer.loop(train_ds, val_ds, args.output, epochs=args.epochs, start_epoch=start_epoch)
     return trainer

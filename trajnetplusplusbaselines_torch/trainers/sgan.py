@@ -31,9 +31,14 @@ takes the plain grid (``models/lstm.LSTM.route``).
 host (augmentation from the numpy generator) in their shuffled order, the
 generator and discriminator steps in turn, at the trainer's
 ``start_length`` (the JAX SGAN trainer draws none).  ``--load-full-state``
-takes a JAX sidecar's two optax states.  Refused as the LSTM trainer
-refuses them (``trainers/lstm.refuse_unported``): ``--dp`` / ``--tp`` above
-1, ``--orbax``.
+takes a JAX sidecar's two optax states.  ``--dp`` / ``--tp`` as in the LSTM
+trainer, for both players: each rank rolls out and scores its scenes, the
+rollouts and scores of every rank are gathered, and the variety and
+adversarial losses are those of the whole batch (the noise and the label
+are drawn alike on every rank); the per-batch generator / discriminator
+flags are held the same on every rank (``replicate_on_mesh``);
+``--obs_dropout`` with a mesh raises in ``Trainer.__init__``.  ``--orbax``
+is refused as the LSTM trainer refuses it.
 
 Usage:
     python -m trajnetplusplusbaselines_torch.trainers.sgan --path trajdata \
@@ -55,7 +60,6 @@ from ..utils.convert import params_to_numpy
 from .common import (
     EpochLoop,
     SceneDataset,
-    adam_state_to_numpy,
     cast_compute,
     f32_model,
     make_optimizer,
@@ -63,11 +67,12 @@ from .common import (
     outputs_f32,
     packed_batch,
     param_items,
+    replicate_on_mesh,
     set_lr,
     step_lr,
 )
-from .lstm import (add_arguments, check_device, configure, load_params, open_run, read_splits,
-                   restore_optimizer)
+from .lstm import (add_arguments, check_device, configure, join_ranks, load_params, open_run,
+                   read_splits, restore_optimizer, run_mesh)
 
 
 class Trainer(EpochLoop):
@@ -77,13 +82,18 @@ class Trainer(EpochLoop):
     def __init__(self, model: SGAN, params, g_schedule, d_schedule, criterion="pred",
                  batch_size=8, obs_length=9, pred_length=12, augment=True, save_every=1,
                  start_length=0, augment_noise=False, val_flag=True, seed=42, clip_grad=None,
-                 obs_dropout=False):
+                 obs_dropout=False, mesh=None):
         if model.g_steps + model.d_steps < 1:
             raise ValueError("an SGAN trains with g_steps + d_steps >= 1")
+        if mesh is not None and obs_dropout:
+            raise ValueError("obs_dropout uses the chunked host path, which is "
+                             "single-device; it cannot be combined with a mesh")
         self.model = model
-        self.params = params
-        self.g_paths, self.g_leaves = zip(*param_items(params["generator"]))
-        self.d_paths, self.d_leaves = zip(*param_items(params["discriminator"]))
+        self.params = self.attach_mesh(mesh, params, batch_size)
+        self.g_paths, self.g_leaves = zip(*param_items(self.params["generator"]))
+        self.d_paths, self.d_leaves = zip(*param_items(self.params["discriminator"]))
+        self.g_split = self._split(self.g_paths, "generator/")
+        self.d_split = self._split(self.d_paths, "discriminator/")
         for leaf in self.g_leaves + self.d_leaves:
             leaf.requires_grad_()
         self.device = self.g_leaves[0].device
@@ -110,11 +120,12 @@ class Trainer(EpochLoop):
         # augmentation, the generator's noise and the label smoothing
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
         self._resident = {}
+        self.epoch_losses = np.zeros(0)  # the last epoch's per-batch losses
 
     # ------------------------------------------------------------------ step
     def _params(self):
-        """Both players' params in the compute dtype (``--bf16``)."""
-        return cast_compute(self.params, self.model.compute_dtype)
+        """Both players' full params in the compute dtype (``--bf16``)."""
+        return cast_compute(self._full(self.params), self.model.compute_dtype)
 
     def _f32(self, outputs):
         return outputs_f32(outputs, self.model.compute_dtype)
@@ -130,30 +141,45 @@ class Trainer(EpochLoop):
         return torch.sum(torch.min(per_mode, dim=0).values)
 
     def _observed(self, xy, mask):
-        return xy[self.start_length:self.obs_length], mask[self.start_length:self.obs_length]
+        """This rank's observed frames and their mask."""
+        return (self._rows(xy[self.start_length:self.obs_length], 1),
+                self._rows(mask[self.start_length:self.obs_length], 1))
+
+    def _kw(self, goals, slot_mask):
+        """This rank's goals and slot mask, as ``generate``'s keywords."""
+        return dict(goals=self._rows(goals, 0), slot_mask=self._rows(slot_mask, 0))
+
+    def _generate(self, params, observed, observed_mask, xy=None, mask=None, **kw):
+        """``SGAN.generate`` of this rank's scenes, teacher-forced on
+        ``xy[obs_length:]`` where given, in f32."""
+        truth = {} if xy is None else dict(
+            prediction_truth=self._rows(xy[self.obs_length:], 1),
+            prediction_truth_mask=self._rows(mask[self.obs_length:], 1))
+        return self._f32(self.model.generate(params, observed, observed_mask, rng=self.generator,
+                                             **truth, **kw))
 
     def _fake_scores(self, params, observed, observed_mask, pred, valid, **kw):
-        """The discriminator's scores of the last mode's predicted frames."""
-        return self._f32(self.model.discriminator.score(
+        """The discriminator's scores of the last mode's predicted frames,
+        every rank's gathered."""
+        return self._gather(self._f32(self.model.discriminator.score(
             params["discriminator"], observed, observed_mask, pred[-1][-self.pred_length:],
-            valid[-1][-self.pred_length:], **kw))
+            valid[-1][-self.pred_length:], **kw)), 0)
 
     def g_loss_and_grads(self, xy, mask, scene_mask, goals=None, slot_mask=None, *,
                          noise=None, label=None):
         """A generator step's loss and its gradient for every generator leaf.
         noise [k, noise_dim] and the smoothed real label, else drawn."""
         observed, observed_mask = self._observed(xy, mask)
-        kw = dict(goals=goals, slot_mask=slot_mask)
+        kw = self._kw(goals, slot_mask)
         params = self._params()
-        rel, pred, valid = self._f32(self.model.generate(
-            params, observed, observed_mask, xy[self.obs_length:], mask[self.obs_length:],
-            noise=noise, rng=self.generator, **kw))
-        loss = self.variety_loss(rel, xy, scene_mask)
+        rel, pred, valid = self._generate(params, observed, observed_mask, xy, mask, noise=noise,
+                                          **kw)
+        loss = self.variety_loss(self._gather(rel, 2), xy, scene_mask)
         if self.model.d_steps:
             scores_fake = self._fake_scores(params, observed, observed_mask, pred, valid, **kw)
             loss = loss + gan_g_loss(scores_fake, label, generator=self.generator)
         grads = torch.autograd.grad(loss, self.g_leaves, materialize_grads=True)
-        return loss.detach(), grads
+        return loss.detach(), self._summed(grads)
 
     def d_loss_and_grads(self, xy, mask, scene_mask, goals=None, slot_mask=None, *,
                          noise=None, label=None):
@@ -161,50 +187,57 @@ class Trainer(EpochLoop):
         discriminator leaf: the truth and one rollout (made without
         autograd; noise [1, noise_dim], else drawn) scored."""
         observed, observed_mask = self._observed(xy, mask)
-        kw = dict(goals=goals, slot_mask=slot_mask)
-        truth, truth_mask = xy[self.obs_length:], mask[self.obs_length:]
+        kw = self._kw(goals, slot_mask)
         params = self._params()
         with torch.no_grad():
-            _, pred, valid = self._f32(self.model.generate(
-                params, observed, observed_mask, truth, truth_mask, modes=1, noise=noise,
-                rng=self.generator, **kw))
-        scores_real = self._f32(self.model.discriminator.score(
-            params["discriminator"], observed, observed_mask, truth, truth_mask, **kw))
+            _, pred, valid = self._generate(params, observed, observed_mask, xy, mask, modes=1,
+                                            noise=noise, **kw)
+        scores_real = self._gather(self._f32(self.model.discriminator.score(
+            params["discriminator"], observed, observed_mask,
+            self._rows(xy[self.obs_length:], 1), self._rows(mask[self.obs_length:], 1), **kw)), 0)
         scores_fake = self._fake_scores(params, observed, observed_mask, pred, valid, **kw)
         loss = gan_d_loss(scores_real, scores_fake, label, generator=self.generator)
         grads = torch.autograd.grad(loss, self.d_leaves, materialize_grads=True)
-        return loss.detach(), grads
+        return loss.detach(), self._summed(grads)
 
     def train_step(self, xy, mask, scene_mask, goals=None, slot_mask=None, step_type="g"):
         """One optimizer step of the generator (``"g"``) or the discriminator
         (``"d"``) on one batch; returns the loss, on the device."""
         if step_type == "g":
             loss, grads = self.g_loss_and_grads(xy, mask, scene_mask, goals, slot_mask)
-            leaves, optimizer = self.g_leaves, self.g_optimizer
+            leaves, optimizer, split = self.g_leaves, self.g_optimizer, self.g_split
         else:
             loss, grads = self.d_loss_and_grads(xy, mask, scene_mask, goals, slot_mask)
-            leaves, optimizer = self.d_leaves, self.d_optimizer
-        optimizer_step(optimizer, leaves, grads, self.clip_grad)
+            leaves, optimizer, split = self.d_leaves, self.d_optimizer, self.d_split
+        optimizer_step(optimizer, leaves, grads, self.clip_grad, split=split, mesh=self.mesh)
         return loss
 
     def step_types(self, n_batches: int):
         """Per batch "g" or "d": g_steps generator steps then d_steps
-        discriminator steps, repeating over the epoch."""
+        discriminator steps, repeating over the epoch; the same on every
+        rank of a mesh (``replicate_on_mesh``)."""
         pattern = ["g"] * self.model.g_steps + ["d"] * self.model.d_steps
-        return [pattern[i % len(pattern)] for i in range(n_batches)]
+        generator_steps = replicate_on_mesh(self.mesh, [
+            pattern[i % len(pattern)] == "g" for i in range(n_batches)])
+        return ["g" if g else "d" for g in generator_steps]
 
     # ----------------------------------------------------------------- loops
     def save_checkpoint(self, epoch: int, filename: str):
+        """The predictor pickle and its sidecar, full leaves and moments
+        (gathered on a mesh), written by rank 0."""
         last = max(epoch - 1, 0)
+        params = self._full(self.params, autograd=False)
         state = {
             "epoch": epoch,
-            "params": params_to_numpy(self.params),
+            "params": params_to_numpy(params),
             "opt_state_hyper": {"g_learning_rate": float(self.g_schedule(last)),
                                 "d_learning_rate": float(self.d_schedule(last))},
-            "g_opt_state": adam_state_to_numpy(self.g_optimizer, self.g_paths),
-            "d_opt_state": adam_state_to_numpy(self.d_optimizer, self.d_paths),
+            "g_opt_state": self._full_adam_state(self.g_optimizer, self.g_paths, "generator/"),
+            "d_opt_state": self._full_adam_state(self.d_optimizer, self.d_paths,
+                                                 "discriminator/"),
         }
-        ckpt.save_predictor(SGANPredictor(f32_model(self.model), self.params), filename, state)
+        if self.writes:
+            ckpt.save_predictor(SGANPredictor(f32_model(self.model), params), filename, state)
 
     def train(self, scenes: SceneDataset, epoch: int):
         start_time = time.time()
@@ -224,6 +257,7 @@ class Trainer(EpochLoop):
         losses = [self.train_step(*batch, step_type=kind) for kind, batch in
                   zip(self.step_types(len(scenes)), batches)]  # at most a batch a scene
         losses = torch.stack(losses).cpu().numpy() if losses else np.zeros(0)  # sync point
+        self.epoch_losses = losses
         self.log_train(scenes, epoch, losses, start_time, lr)
 
     def val(self, scenes: SceneDataset, epoch: int):
@@ -234,10 +268,9 @@ class Trainer(EpochLoop):
         with torch.no_grad():
             for xy, mask, scene, goals, slot in self._batches(resident, plan):
                 observed, observed_mask = self._observed(xy, mask)
-                rel, _, _ = self._f32(self.model.generate(
-                    self._params(), observed, observed_mask, n_predict=self.pred_length,
-                    rng=self.generator, goals=goals, slot_mask=slot))
-                test_losses.append(self.variety_loss(rel, xy, scene))
+                rel, _, _ = self._generate(self._params(), observed, observed_mask,
+                                           n_predict=self.pred_length, **self._kw(goals, slot))
+                test_losses.append(self.variety_loss(self._gather(rel, 2), xy, scene))
         test_loss = float(torch.stack(test_losses).sum()) if test_losses else 0.0
         self.log.info({
             "type": "val-epoch",
@@ -262,7 +295,8 @@ def main(epochs=25, argv=None):
     gan.add_argument("--g_step_size", default=10, type=int)
     gan.add_argument("--d_step_size", default=10, type=int)
     args = parser.parse_args(argv)
-    device = check_device(args)
+    device = join_ranks(args, check_device(args), "trajnetplusplusbaselines_torch.trainers.sgan")
+    mesh = run_mesh(args, device)
     pool, d_pool = make_pool(args.type, args), make_pool(args.type, args)
     open_run(args, "sgan_goals" if args.goals else "sgan")
     train_ds, val_ds, val_flag = read_splits(args)
@@ -283,12 +317,14 @@ def main(epochs=25, argv=None):
         criterion=args.loss, batch_size=args.batch_size, obs_length=args.obs_length,
         pred_length=args.pred_length, augment=args.augment, save_every=args.save_every,
         start_length=args.start_length, augment_noise=args.augment_noise, val_flag=val_flag,
-        seed=args.seed, clip_grad=args.clip_grad, obs_dropout=args.obs_dropout,
+        seed=args.seed, clip_grad=args.clip_grad, obs_dropout=args.obs_dropout, mesh=mesh,
     )
     start_epoch = 0
     if args.load_full_state:
-        restore_optimizer(trainer.g_optimizer, trainer.g_paths, state["g_opt_state"])
-        restore_optimizer(trainer.d_optimizer, trainer.d_paths, state["d_opt_state"])
+        restore_optimizer(trainer.g_optimizer, trainer.g_paths, state["g_opt_state"],
+                          trainer._block("generator/"))
+        restore_optimizer(trainer.d_optimizer, trainer.d_paths, state["d_opt_state"],
+                          trainer._block("discriminator/"))
         start_epoch = state["epoch"]
     trainer.loop(train_ds, val_ds, args.output, epochs=args.epochs, start_epoch=start_epoch)
     return trainer

@@ -25,8 +25,10 @@ takes the fused step there, 30 launches per batch.
 trains the JAX trainer's host path: batches packed on the host
 (augmentation from the numpy generator) in their shuffled order, one
 ``start_length`` drawn after each, validation from frame 0;
-``--load-full-state`` takes a JAX sidecar's optax state.  Refused as the
-LSTM trainer refuses them (``trainers/lstm.refuse_unported``).
+``--load-full-state`` takes a JAX sidecar's optax state; ``--dp`` / ``--tp``
+as in the LSTM trainer: the latent normals of the whole batch are drawn on
+every rank (the one-process draw) and each rank takes its scenes' rows.
+``--orbax`` is refused as the LSTM trainer refuses it.
 
 Usage:
     python -m trajnetplusplusbaselines_torch.trainers.vae --path trajdata \
@@ -49,6 +51,8 @@ class Trainer(lstm_trainer.Trainer):
     """Trains a ``VAE``; the LSTM trainer's loop, batches and checkpoints."""
 
     predictor_class = VAEPredictor
+    # rel_pred, pred, valid [k, T', S, A, ...], z_distr_xy and z_distr_x [S, A, 2 latent]
+    output_scene_dims = (2, 2, 2, 0, 0)
 
     def __init__(self, model: VAE, params, lr_schedule, alpha_kld: float = 1.0, **kwargs):
         super().__init__(model, params, lr_schedule, **kwargs)
@@ -60,6 +64,9 @@ class Trainer(lstm_trainer.Trainer):
         eps [k, S, A, latent], else drawn; ``start_length``, the trainer's by
         default."""
         sl = self.start_length if start_length is None else start_length
+        if eps is None:  # the whole batch's draw, of which a rank runs its rows
+            eps = self.model.draw_eps(self.model.num_modes, *xy.shape[1:3], self.generator,
+                                      self.compute_dtype or self.leaves[0].dtype)
         rel, _, _, z_xy, z_x = self._forward(
             self.params, xy, mask, sl,
             prediction_truth=xy[self.obs_length:self.seq_length - 1],
@@ -81,14 +88,15 @@ class Trainer(lstm_trainer.Trainer):
                                     start_length=start_length)
         loss = reconstr + self.alpha_kld * kld
         grads = torch.autograd.grad(loss, self.leaves, materialize_grads=True)
-        return loss.detach(), reconstr.detach(), grads
+        return loss.detach(), reconstr.detach(), self._summed(grads)
 
     def train_step(self, xy, mask, scene_mask, goals=None, slot_mask=None, start_length=None):
         """One optimizer step on one batch; returns the reconstruction loss,
         on the device."""
         _, reconstr, grads = self.loss_and_grads(xy, mask, scene_mask, goals, slot_mask,
                                                  start_length=start_length)
-        optimizer_step(self.optimizer, self.leaves, grads, self.clip_grad)
+        optimizer_step(self.optimizer, self.leaves, grads, self.clip_grad, split=self.split,
+                       mesh=self.mesh)
         return reconstr
 
     def _train_obs_dropout(self, scenes, epoch: int):
@@ -133,7 +141,9 @@ def main(epochs=25, argv=None):
     vae.add_argument("--vae_latent_dim", type=int, default=128,
                      help="latent dimension of the VAE bottleneck")
     args = parser.parse_args(argv)
-    device = lstm_trainer.check_device(args)
+    device = lstm_trainer.join_ranks(args, lstm_trainer.check_device(args),
+                                     "trajnetplusplusbaselines_torch.trainers.vae")
+    mesh = lstm_trainer.run_mesh(args, device)
     pool = make_pool(args.type, args)
     lstm_trainer.open_run(args, "vae_goals" if args.goals else "vae")
     train_ds, val_ds, val_flag = lstm_trainer.read_splits(args)
@@ -150,11 +160,12 @@ def main(epochs=25, argv=None):
         criterion=args.loss, batch_size=args.batch_size, obs_length=args.obs_length,
         pred_length=args.pred_length, augment=args.augment, save_every=args.save_every,
         start_length=args.start_length, augment_noise=args.augment_noise, val_flag=val_flag,
-        seed=args.seed, clip_grad=args.clip_grad, obs_dropout=args.obs_dropout,
+        seed=args.seed, clip_grad=args.clip_grad, obs_dropout=args.obs_dropout, mesh=mesh,
     )
     start_epoch = 0
     if args.load_full_state:
-        lstm_trainer.restore_optimizer(trainer.optimizer, trainer.paths, state["opt_state"])
+        lstm_trainer.restore_optimizer(trainer.optimizer, trainer.paths, state["opt_state"],
+                                       trainer._block())
         start_epoch = state["epoch"]
     trainer.loop(train_ds, val_ds, args.output, epochs=args.epochs, start_epoch=start_epoch)
     return trainer
