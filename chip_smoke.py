@@ -1276,7 +1276,8 @@ def generative_steps(kind, model, params, dev, rng, card, counted) -> dict:
     def trainer(device, dtype):
         own = params_from_jax(params_to_numpy(params), device=device, dtype=dtype)
         if kind == "sgan":
-            return sgan_trainer.Trainer(model, own, step_lr(1e-3, 10), step_lr(1e-3, 10))
+            return sgan_trainer.Trainer(model, own, step_lr(1e-3, 10), step_lr(1e-3, 10),
+                                        criterion="pred")
         return vae_trainer.Trainer(model, own, step_lr(1e-3, 10))
 
     card_tr, cpu_tr = trainer(dev, torch.float32), trainer("cpu", torch.float64)
@@ -2672,7 +2673,7 @@ def main() -> int:
                                out / f"generative_{kind}_{s}x{a}.txt"))
             if kind == "sgan":
                 trainer = sgan_trainer.Trainer(gen_model, gen_params, step_lr(1e-3, 10),
-                                               step_lr(1e-3, 10))
+                                               step_lr(1e-3, 10), criterion="pred")
                 steps = {f"{kind}_{t}": (lambda t=t: trainer.train_step(*batch, step_type=t))
                          for t in ("g", "d")}
             else:

@@ -9,6 +9,8 @@ tiny size: its pickle loads and serves through its CLI; and the default
 ``--device cuda`` raises without a card.
 """
 
+import importlib
+import inspect
 import os
 import re
 
@@ -73,7 +75,8 @@ def _sgan_trainers(pool_type="directional", seed=1):
     jtr = JSGANTrainer(jmodel, jparams, opt, opt, jcommon.step_lr(1e-3, 10),
                        jcommon.step_lr(1e-3, 10), criterion="pred", batch_size=4, augment=False)
     tr = sgan_trainer.Trainer(port_model(jmodel), params, common.step_lr(1e-3, 10),
-                              common.step_lr(1e-3, 10), batch_size=4, augment=False)
+                              common.step_lr(1e-3, 10), criterion="pred", batch_size=4,
+                              augment=False)
     return jtr, jparams, tr
 
 
@@ -123,6 +126,39 @@ def test_sgan_step_types_alternate():
     _, _, tr = _sgan_trainers()
     tr.model.g_steps, tr.model.d_steps = 2, 1
     assert tr.step_types(7) == ["g", "g", "d", "g", "g", "d", "g"]
+
+
+def _init_defaults(cls):
+    """{parameter: default} of a constructor, following ``**kwargs`` into
+    the constructors of its bases."""
+    out = {}
+    for klass in cls.__mro__:
+        if "__init__" not in vars(klass):
+            continue
+        params = list(inspect.signature(klass.__init__).parameters.values())[1:]
+        for p in params:
+            if p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD):
+                out.setdefault(p.name, p.default)
+        if not any(p.kind is p.VAR_KEYWORD for p in params):
+            return out
+    return out
+
+
+@pytest.mark.parametrize("module,cls", [("lstm", "Trainer"), ("sgan", "Trainer"),
+                                        ("vae", "Trainer"), ("ensemble", "EnsembleTrainer")])
+def test_trainer_defaults_match_jax(module, cls):
+    """A trainer built directly trains what JAX's trains: every parameter
+    both constructors take has the same default (the SGAN's criterion is
+    "L2" in both)."""
+    port = _init_defaults(getattr(importlib.import_module(
+        f"trajnetplusplusbaselines_torch.trainers.{module}"), cls))
+    jax_ = _init_defaults(getattr(importlib.import_module(
+        f"trajnetplusplusbaselines_tpu.trainers.{module}"), cls))
+    shared = [name for name in jax_ if name in port]
+    assert len(shared) >= 10, shared
+    assert {n: port[n] for n in shared} == {n: jax_[n] for n in shared}
+    if module == "sgan":
+        assert port["criterion"] == "L2"
 
 
 @pytest.mark.parametrize("pool_type", ["directional", "nn_lstm"])

@@ -18,9 +18,12 @@ velocity, the Kalman filter and social force folded over whole test sets
 on the device, ORCA on the host; ``evaluator.classical_cli``,
 ``socialforce_eval``, ``tools.get_dest``); multi-device training and
 serving over ``torch.distributed`` (``parallel``: ``--dp`` / ``--tp`` in
-the trainers, the multi-process evaluator); and the tools (``tools``).
-Only ``tools/eval_reference_checkpoint.py`` is not ported: it drives the
-reference implementation, which is not in the repository.
+the trainers, the multi-process evaluator); and the tools (``tools``),
+``eval_reference_checkpoint`` among them, which scores a checkpoint of the
+reference implementation on the port's evaluator.  Every module of the JAX
+package has its counterpart here (``tests/test_torch_surface.py``), apart
+from code that exists only for the TPU toolchain (Orbax, the compile cache,
+the scan recipe).
 """
 
 __version__ = "0.1.0"

@@ -2,7 +2,7 @@
 
 Copy of what the port uses of ``trajnetplusplusbaselines_tpu/data/
 augmentation.py``: centring and rotating a scene and its inverse, dropping
-distant tracks, and the trainers' host-side augmentation (a random rotation
+distant or unobserved tracks, and the trainers' host-side augmentation (a random rotation
 and observation noise, drawn from a numpy generator in the JAX package's
 order), on the ``[T, num_tracks, 2]`` NaN-padded arrays of
 ``Reader.paths_to_xy``.
@@ -62,6 +62,13 @@ def drop_distant(xy: np.ndarray, r: float = 6.0) -> Tuple[np.ndarray, np.ndarray
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", category=RuntimeWarning)
         mask = np.nanmin(distance_2, axis=0) < r ** 2  # all-NaN track -> False
+    return xy[:, mask], mask
+
+
+def drop_unobserved(xy: np.ndarray, obs_length: int = 9) -> Tuple[np.ndarray, np.ndarray]:
+    """Drop tracks absent at the last observation frame."""
+    absent = np.isnan(xy[obs_length - 1]).any(axis=1)
+    mask = ~absent
     return xy[:, mask], mask
 
 

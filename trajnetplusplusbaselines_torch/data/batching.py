@@ -1,9 +1,8 @@
 """Scene packing: ragged scenes -> dense padded [T, S, A, 2] arrays + masks.
 
-Copy of what the port uses of ``trajnetplusplusbaselines_tpu/data/
-batching.py``.  Scenes are an array axis: a batch is a dense ``[time,
-scene, agent, 2]`` array with a boolean presence mask, the agent axis padded
-to a small set of buckets.
+Copy of ``trajnetplusplusbaselines_tpu/data/batching.py``.  Scenes are an
+array axis: a batch is a dense ``[time, scene, agent, 2]`` array with a
+boolean presence mask, the agent axis padded to a small set of buckets.
 """
 
 import warnings
@@ -119,3 +118,26 @@ def pack_scenes(
             goal_arr[i, :n] = g[:n]
 
     return PackedScenes(xy=xy, mask=mask, goals=goal_arr, num_agents=num_agents)
+
+
+def unpack_scene(packed: PackedScenes, i: int) -> np.ndarray:
+    """Recover scene i as a NaN-padded ``[T, num_agents_i, 2]`` array."""
+    n = int(packed.num_agents[i])
+    return mask_to_nan(packed.xy[:, i, :n], packed.mask[:, i, :n])
+
+
+def batch_iterator(
+    scenes_xy: List[np.ndarray],
+    goals: Optional[List[np.ndarray]],
+    batch_size: int,
+    buckets: Sequence[int] = DEFAULT_AGENT_BUCKETS,
+):
+    """Yield PackedScenes batches of at most batch_size scenes.
+
+    The final short batch is padded (fully masked) up to batch_size, so every
+    batch has the same scene axis.
+    """
+    for start in range(0, len(scenes_xy), batch_size):
+        chunk = scenes_xy[start : start + batch_size]
+        chunk_goals = goals[start : start + batch_size] if goals is not None else None
+        yield pack_scenes(chunk, chunk_goals, pad_scenes_to=batch_size, buckets=buckets)

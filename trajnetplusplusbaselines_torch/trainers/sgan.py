@@ -79,7 +79,7 @@ class Trainer(EpochLoop):
     """Trains an ``SGAN`` whose params ``{"generator": ..., "discriminator":
     ...}`` live on one device; the leaves are trained in place."""
 
-    def __init__(self, model: SGAN, params, g_schedule, d_schedule, criterion="pred",
+    def __init__(self, model: SGAN, params, g_schedule, d_schedule, criterion="L2",
                  batch_size=8, obs_length=9, pred_length=12, augment=True, save_every=1,
                  start_length=0, augment_noise=False, val_flag=True, seed=42, clip_grad=None,
                  obs_dropout=False, mesh=None):
