@@ -50,8 +50,24 @@ PyTorch built for CUDA (no jax needed).  Phases, one line each:
    f32 step on the
    card against an f64 step on the CPU (loss 1e-5 relative, gradients 1e-4
    relative + 1e-5 of each leaf's largest), device augmentation keeping
-   pairwise distances, and the train step's time at batch 8 and 256 and the
-   grid kernel's against the plain grid's (CUDA events, warm);
+   pairwise distances, and the train step's time at batch 8 and 256 (CUDA
+   graph replays, ``trainers/graphs.py``) and the grid kernel's against the
+   plain grid's (CUDA events, warm);
+6b. graphs: the flagship's ``Trainer.train``, 3 epochs over two bucket
+   shapes (A=8 and A=4) with the learning rate dropping every epoch, its
+   step replayed as CUDA graphs against eager steps with the same capturable
+   Adam, from the same params, batches and draws: after each epoch every
+   leaf and Adam moment within twice what two eager runs differ by (or
+   1e-6) relative to its largest, a control (one step left out) above that
+   limit, the host-side Adam beside it; every run's grid launches read exactly
+   (19 a step, 38 under remat); the grid stage's events in a traced window
+   of two graph epochs (at least half their launches, no more than all);
+   ms per step on graphs against eager, beside the card.
+   In every phase a CUDA graph replay's launches are read from the graph:
+   once captured, each graph's kernel nodes are counted in its DOT dump
+   (``install_graph_counting``), each replay counts them, and the counts
+   ``trainers/graphs.StepGraphs`` adds to the wrappers' counters a replay
+   must equal them;
 7. pools (the main path's other interaction modules), at the trainer's
    default widths (hidden 128, embedding 64, pool 256, n 12, cell 0.6 m,
    latent 16, neigh 4, mp_iters 5):
@@ -177,11 +193,13 @@ import logging
 import math
 import os
 import pickle
+import re
 import subprocess
 import sys
 import tempfile
 import time
-from collections import namedtuple
+import warnings
+from collections import Counter, namedtuple
 from pathlib import Path
 from unittest import mock
 
@@ -267,6 +285,14 @@ PARALLEL_TIMEOUT_S = 420  # the two ranks' whole run; then they are killed
 PARALLEL_TIMED_REPS = 10
 NOT_SCALING = "two ranks on one card; not a scaling number"
 GRID_KERNEL = "directional_grid_kernel"  # the grid stage's name in a profiler trace
+# phase 6b: the train step as CUDA graphs against eager steps, at the
+# flagship's widths; (scenes, agents) of the two buckets (a scene of 3
+# agents pads to the trainer's bucket of 4), epochs at StepLR step 1
+GRAPH_SCENES = ((48, 8), (48, 3))
+GRAPH_EPOCHS = 3
+GRAPH_SEED = 13
+GRAPH_RTOL_FLOOR = 1e-6  # the limit's floor, where two eager runs agree closer
+GRAPH_LEFT_OUT = 2  # the control's step left out, counted from 1
 
 
 def host_ms(fn, reps=20, warmup=2) -> float:
@@ -739,16 +765,16 @@ def train_phase(dev, rng) -> dict:
             write_split(root, rng, n_scenes=96, big=None, observed_only=(), full=("val",))
             test_observed = write_split(root, rng, n_scenes=64, big=None)
 
-            fused_step.fused_dlstm_step.launches = 0
-            fused_step.directional_grid.launches = 0
+            counters = Launches()
+            counters.zero()
             t0 = time.perf_counter()
             trainer = train_cli.main(argv=flagship_argv(
                 "synth_train", "--epochs", str(TRAIN_EPOCHS), "--save_every", "1", "--seed", "0",
                 "-o", "smoke"))
             torch.cuda.synchronize()
             train_s = time.perf_counter() - t0
-            train_launches = {"fused_dlstm_step": fused_step.fused_dlstm_step.launches,
-                              "directional_grid": fused_step.directional_grid.launches}
+            train_launches = counters.current()
+            replayed = dict(REPLAYED["ran"])
             close_log()
 
             # batches per epoch from the datasets the trainer made resident on
@@ -757,7 +783,8 @@ def train_phase(dev, rng) -> dict:
             train_batches, val_batches = map(batches_per_epoch, (resident, val_resident))
             n_train, n_val = len(train_ds), len(val_ds)
             want = {"fused_dlstm_step": 2 * 19 * val_batches * TRAIN_EPOCHS,
-                    "directional_grid": 19 * train_batches * TRAIN_EPOCHS}
+                    "directional_grid": 19 * train_batches * TRAIN_EPOCHS,
+                    "directional_grid_bf16": 0}
             if train_launches != want:
                 raise AssertionError(f"training launched {train_launches}, expected {want}")
             out = f"OUTPUT_BLOCK/synth_train/{name}.pkl"
@@ -829,7 +856,7 @@ def train_phase(dev, rng) -> dict:
                             reps=50)
     say("train", train_scenes=n_train, val_scenes=n_val, train_batches_per_epoch=train_batches,
         val_batches_per_epoch=val_batches, epochs=TRAIN_EPOCHS, cli_seconds=train_s,
-        launches=train_launches, epoch_losses=epoch_losses,
+        launches=train_launches, replayed_launches=replayed, epoch_losses=epoch_losses,
         val_losses=[(r["loss"], r["test_loss"]) for r in by_type["val-epoch"]],
         served_ade_fde=served[1:3], rotation_err_m=rotation_err, check_bucket=key,
         grid_vs_plain_max_diff=grid_train_err,
@@ -844,6 +871,158 @@ def train_phase(dev, rng) -> dict:
         flush=True)
     return {"launches": train_launches, "grid_ms": grid_ms, "plain_grid_ms": plain_grid_ms,
             "timed": timed, "predictor": trained}
+
+
+def graph_scenes(rng):
+    """Phase 6b's ``SceneDataset``: random walks of 21 frames in two agent
+    buckets (``GRAPH_SCENES``), every agent present, no goals."""
+    from trajnetplusplusbaselines_torch.trainers.common import SceneDataset
+
+    data = SceneDataset([], 9, normalize_scene=False)
+    for s, a in GRAPH_SCENES:
+        xy = (rng.normal(scale=0.15, size=(21, s, a, 2)).cumsum(axis=0)
+              + rng.uniform(-3, 3, size=(1, s, a, 2)))
+        data.xys += [xy[:, i] for i in range(s)]
+        data.goals += [np.zeros((a, 2)) for _ in range(s)]
+    return data
+
+
+def largest_relative(got, want) -> float:
+    """The largest relative difference over pairs of tensors, each taken
+    against its ``want``'s largest magnitude."""
+    return max(float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+               for g, w in zip(got, want))
+
+
+def graph_phase(dev, rng, card) -> dict:
+    """Phase 6b: the flagship's ``Trainer.train`` with its step replayed as
+    CUDA graphs (``trainers/graphs.py``) against eager steps with the same
+    capturable Adam, from the same params, batches and augmentation draws,
+    ``GRAPH_EPOCHS`` epochs over two bucket shapes with the learning rate
+    dropping every epoch.  After each epoch every leaf and Adam moment of
+    the graph run is held, relative to its largest magnitude, within twice
+    what two eager runs differ by, or ``GRAPH_RTOL_FLOOR``; a control (the
+    graph run with step ``GRAPH_LEFT_OUT`` left out) must sit above that
+    limit, and the host-side Adam (``make_optimizer``: a float rate, the step
+    count and bias correction on the host) shows what
+    capturable Adam alone changes.  Every run's grid launches are read
+    exactly (19 a step; 38 a step under remat, one epoch), the replays' from
+    their graphs' kernel nodes (``Launches``); the graph run's is this
+    phase's main-path read.  A traced window of two more graph epochs holds
+    the grid stage's events.  Returns its launches and figures."""
+    from torch.utils._pytree import tree_map
+
+    from trajnetplusplusbaselines_torch.trainers import graphs
+    from trajnetplusplusbaselines_torch.trainers.common import make_optimizer, step_lr
+    from trajnetplusplusbaselines_torch.trainers.lstm import Trainer
+
+    data = graph_scenes(rng)
+    model = flagship_model()
+    init = model.init_params(torch.Generator().manual_seed(GRAPH_SEED), device=dev)
+    counters = Launches()
+
+    def run(kind, epochs=GRAPH_EPOCHS, remat=False):
+        """(per epoch: leaves, moments, losses, ms a step; launches; graphs)."""
+        run_model = flagship_model()
+        run_model.remat = remat
+        trainer = Trainer(run_model, tree_map(lambda x: x.clone(), init), step_lr(1e-3, 1),
+                          seed=GRAPH_SEED)
+        if not isinstance(trainer.graphs, graphs.StepGraphs):
+            raise AssertionError("a trainer on the card in one process took no graphs")
+        if kind not in ("graphs", "left_out"):
+            trainer.graphs = None
+        if kind == "host_adam":
+            trainer.optimizer = make_optimizer(trainer.leaves)
+        calls = [0]
+        if kind == "left_out":
+            real = trainer.train_step
+
+            def step(*batch, **kw):
+                calls[0] += 1
+                return torch.zeros((), device=dev) if calls[0] == GRAPH_LEFT_OUT else real(
+                    *batch, **kw)
+
+            trainer.train_step = step
+        counters.zero()
+        epochs_out = []
+        for epoch in range(epochs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train(data, epoch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / len(trainer.epoch_losses)
+            state = trainer.optimizer.state
+            moments = [state[leaf][k].clone() for leaf in trainer.leaves
+                       for k in ("exp_avg", "exp_avg_sq")]
+            epochs_out.append({"leaves": [x.detach().clone() for x in trainer.leaves],
+                               "moments": moments, "losses": torch.from_numpy(
+                                   trainer.epoch_losses.copy()), "ms": ms})
+        steps = epochs * len(trainer.epoch_losses) - (kind == "left_out")
+        grid = "directional_grid"
+        launches = counters.read({grid: (38 if remat else 19) * steps}, add=kind == "graphs")
+        captured = 0 if trainer.graphs is None else len(trainer.graphs.graphs)
+        return epochs_out, launches, captured, steps, trainer
+
+    print("(phase 6b: eager trainers with capturable Adam warn once that it runs uncaptured)",
+          file=sys.stderr)
+    t_phase = time.perf_counter()
+    runs = {kind: run(kind) for kind in ("eager", "graphs", "eager_again", "host_adam", "left_out")}
+    remat_epochs, remat_launches, remat_graphs, _, _ = run("graphs", epochs=1, remat=True)
+    if runs["graphs"][2] != len(GRAPH_SCENES) or remat_graphs != len(GRAPH_SCENES):
+        raise AssertionError(f"captured {runs['graphs'][2]} and {remat_graphs} graphs, "
+                             f"one a bucket of {GRAPH_SCENES} wanted")
+
+    def distance(kind, epoch):
+        got, want = runs[kind][0][epoch], runs["eager"][0][epoch]
+        return {"leaves": largest_relative(got["leaves"], want["leaves"]),
+                "moments": largest_relative(got["moments"], want["moments"]),
+                "losses": largest_relative([got["losses"]], [want["losses"]])}
+
+    rows = []
+    for epoch in range(GRAPH_EPOCHS):
+        row = {kind: distance(kind, epoch)
+               for kind in ("graphs", "eager_again", "host_adam", "left_out")}
+        limit = max(2 * max(row["eager_again"].values()), GRAPH_RTOL_FLOOR)
+        worst = max(row["graphs"]["leaves"], row["graphs"]["moments"])
+        control = max(row["left_out"]["leaves"], row["left_out"]["moments"])
+        if not worst <= limit:
+            raise AssertionError(f"epoch {epoch}: the graph run differs from the eager run by "
+                                 f"{row['graphs']}, beyond {limit}")
+        if not control > limit:
+            raise AssertionError(f"epoch {epoch}: the control (step {GRAPH_LEFT_OUT} left "
+                                 f"out) differs by only {row['left_out']}, within {limit}")
+        rows.append({"epoch": epoch, "limit": limit, **row})
+        say("graphs_epoch", epoch=epoch, limit=limit, graph_vs_eager=row["graphs"],
+            eager_vs_eager=row["eager_again"], control_step_left_out=row["left_out"],
+            host_adam_vs_capturable=row["host_adam"])
+    # the replays run the grid stage on the card: its events in a traced
+    # window of two more graph epochs, at least half of their launches (the
+    # profiler can drop events, ``held_window``) and no more than all
+    trainer = runs["graphs"][4]
+    epoch_launches = 19 * len(trainer.epoch_losses)
+    traced = held_window(lambda: trainer.train(data, GRAPH_EPOCHS), 2, GRID_KERNEL,
+                         epoch_launches)["kernel_launches"]
+    if traced > 2 * epoch_launches:
+        raise AssertionError(f"two graph epochs traced {traced} grid launches, "
+                             f"{2 * epoch_launches} launched")
+    ms = {kind: [e["ms"] for e in runs[kind][0]] for kind in ("eager", "graphs", "host_adam")}
+    figures = {"scenes": GRAPH_SCENES, "epochs": GRAPH_EPOCHS, "steps": runs["graphs"][3],
+               "graphs": runs["graphs"][2], "epochs_checked": rows,
+               "launches": {kind: r[1] for kind, r in runs.items()},
+               "remat_launches": remat_launches,
+               "traced_grid_launches": {"traced": traced, "launched": 2 * epoch_launches},
+               "ms_per_step": ms,
+               "last_epoch_speedup": ms["eager"][-1] / ms["graphs"][-1],
+               "seconds": time.perf_counter() - t_phase}
+    say("graphs", **{k: v for k, v in figures.items() if k != "epochs_checked"}, card=card)
+    print("Graphs  {} steps of {} scenes a batch: {:.3f} ms/step on graphs against {:.3f} eager "
+          "(host-side Adam {:.3f}), last epoch; graph run within {:.3g} of eager, control {:.3g} "
+          "({})".format(runs["graphs"][3], TRAIN_BATCH, ms["graphs"][-1], ms["eager"][-1],
+                        ms["host_adam"][-1], max(rows[-1]["graphs"]["leaves"],
+                                             rows[-1]["graphs"]["moments"]),
+                        max(rows[-1]["left_out"]["leaves"], rows[-1]["left_out"]["moments"]),
+                        card), flush=True)
+    return {"launches": runs["graphs"][1], "figures": figures}
 
 
 def device_phase(dev, rng, model, params, rollout_ms) -> dict:
@@ -925,11 +1104,85 @@ def device_phase(dev, rng, model, params, rollout_ms) -> dict:
     return {"shapes": shapes, "prep": prep, "grid": grid}
 
 
+# the launches CUDA graph replays ran, by kernel: "ran", the kernel nodes of
+# each replayed graph read from the graph itself; "bookkept", what
+# ``StepGraphs`` added to the wrappers' counters for the same replays
+REPLAYED = {"ran": Counter(), "bookkept": Counter()}
+COUNTER_NAMES = ("fused_dlstm_step", "directional_grid", "directional_grid_bf16")
+
+
+def graph_kernel_nodes(dot: str) -> Counter:
+    """The nodes of the port's kernels in a CUDA graph's DOT dump
+    (``CUDAGraph.debug_dump``), by launch counter: each node is defined at
+    the start of a line, ``"id"[...]``, up to the next one, and a kernel
+    node's label names its function; the grid stage's bf16 instantiation
+    names ``__nv_bfloat16``."""
+    nodes = Counter()
+    starts = list(re.finditer(r'(?m)^\s*"[^"]+"\s*\[', dot))
+    for start, end in zip(starts, starts[1:] + [None]):
+        label = dot[start.end():end.start() if end else len(dot)]
+        if "fused_step_kernel" in label:
+            nodes["fused_dlstm_step"] += 1
+        elif "directional_grid_kernel" in label:
+            nodes["directional_grid_bf16" if "bfloat16" in label else "directional_grid"] += 1
+    return nodes
+
+
+def install_graph_counting():
+    """Measure what the port's CUDA graph replays launch.  Every graph a
+    ``trainers/graphs.StepGraphs`` captures is made a ``CountedGraph``: once
+    captured it reads its own kernel nodes from its DOT dump
+    (``graph_kernel_nodes``), and each replay adds them to
+    ``REPLAYED["ran"]``.  Each ``StepGraphs`` replay is held to its graph:
+    the counts it adds to the wrappers' counters (what the capture's
+    wrappers counted) must equal the graph's nodes, and go to
+    ``REPLAYED["bookkept"]``, so that ``Launches`` swaps them for the
+    measured ones."""
+    from trajnetplusplusbaselines_torch.trainers import graphs
+
+    class CountedGraph(torch.cuda.CUDAGraph):
+        # ``keep_graph``: the captured graph outlives ``capture_end``, so
+        # that ``debug_dump`` can print it; it is instantiated after that
+        def __new__(cls, keep_graph=True):
+            return super().__new__(cls, True)
+
+        def __init__(self, keep_graph=True):
+            super().__init__(True)
+            self.kernels = Counter()
+
+        def capture_end(self):
+            super().capture_end()
+            with tempfile.TemporaryDirectory() as tmp, warnings.catch_warnings():
+                warnings.filterwarnings("ignore", message="DEBUG: calling")
+                path = Path(tmp) / "graph.dot"
+                self.debug_dump(str(path))
+                self.kernels = graph_kernel_nodes(path.read_text())
+            self.instantiate()
+
+        def replay(self):
+            super().replay()
+            REPLAYED["ran"].update(self.kernels)
+
+    replay = graphs.StepGraphs._replay
+
+    def held_replay(self, captured, batch):
+        bookkept = Counter(dict(zip(COUNTER_NAMES, captured.counts)))
+        if bookkept != captured.graph.graph.kernels:
+            raise AssertionError(f"a replay adds {dict(bookkept)} launches, its graph holds "
+                                 f"{dict(captured.graph.graph.kernels)} kernel nodes")
+        REPLAYED["bookkept"].update(bookkept)
+        return replay(self, captured, batch)
+
+    torch.cuda.CUDAGraph = CountedGraph
+    graphs.StepGraphs._replay = held_replay
+
+
 class Launches:
-    """The launch counters of the port's kernels (the fused step, the grid
-    stage and its bf16 instantiation), zeroed just before a run and read
-    just after it, with a running total by kernel of the runs read into
-    it."""
+    """The launches of the port's kernels (the fused step, the grid stage
+    and its bf16 instantiation), zeroed just before a run and read just
+    after it, with a running total by kernel of the runs read into it: the
+    wrappers' counters, where CUDA graph replays launched a kernel the
+    kernel nodes they ran (``install_graph_counting``)."""
 
     def __init__(self):
         from trajnetplusplusbaselines_torch.ops.cuda import fused_step
@@ -942,11 +1195,14 @@ class Launches:
     def zero(self):
         for _, fn, attr in self.kernels:
             setattr(fn, attr, 0)
+        for tally in REPLAYED.values():
+            tally.clear()
 
     def current(self) -> dict:
-        """The counts since ``zero``, by kernel."""
+        """The launches since ``zero``, by kernel."""
         torch.cuda.synchronize()
-        return {name: getattr(fn, attr) for name, fn, attr in self.kernels}
+        return {name: getattr(fn, attr) - REPLAYED["bookkept"][name] + REPLAYED["ran"][name]
+                for name, fn, attr in self.kernels}
 
     def read(self, want, add=True) -> dict:
         """The counts since ``zero``, held to ``want`` (a kernel it does not
@@ -2355,6 +2611,7 @@ def main() -> int:
         raise AssertionError(f"directional_grid_kernel has no 16-byte store: {sass}")
     say("build", seconds=round(time.perf_counter() - t0, 3), nvcc_seconds=build.build_seconds,
         dims=build.kernel_dims(), ptxas=ptxas, sass=sass)
+    install_graph_counting()  # what graph replays launch, read from the graphs
 
     rng = np.random.default_rng(0)
     pool = GridBasedPooling(type_="directional", hidden_dim=128, cell_side=CELL_SIDE, n=N,
@@ -2548,6 +2805,9 @@ def main() -> int:
     # ---- 6: train, the main path's second entry point
     train = train_phase(dev, rng)
 
+    # ---- 6b: the train step as CUDA graphs against eager steps
+    graph = graph_phase(dev, np.random.default_rng(13), card)
+
     # ---- 7: pools: every interaction module, rolled out, trained and served
     pools = pools_phase(dev, rng)
 
@@ -2650,13 +2910,15 @@ def main() -> int:
                     **profiled(step, 5, out / f"generative_{name}_train_step.txt",
                                kernel="directional_grid_kernel"))
 
-    say("seconds", script=time.perf_counter() - started, classical=classical["seconds"],
+    say("seconds", script=time.perf_counter() - started, graphs=graph["figures"]["seconds"],
+        classical=classical["seconds"],
         training_options=phase10_s, parallel=parallel["seconds"], card=card)
     main_s, main_a = ROLLOUTS[0]
     main_device = device["shapes"][(main_s, main_a)]
     train_grid = device["grid"][(TRAIN_BATCH, 8)]
     csrc = "trajnetplusplusbaselines_torch/csrc/"
-    runs = {"serve": main_launches, "train": train["launches"], "pools": pools["launches"],
+    runs = {"serve": main_launches, "train": train["launches"], "graphs": graph["launches"],
+            "pools": pools["launches"],
             "generative": generative["launches"], **options["launches"],
             "parallel_rank0": parallel["launches"], "parallel": parallel["totals"]}
     by_path = {name: {run: counts.get(name, 0) for run, counts in runs.items()}

@@ -45,6 +45,15 @@ def gaussian_2d(params5: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     return numerator / denominator
 
 
+def unit_normal(like: torch.Tensor) -> torch.Tensor:
+    """The normal (mu 0, sigma 1, rho 0) as ``[5]`` params in ``like``'s
+    dtype and device, made there: a copy from host memory cannot be
+    captured in a CUDA graph."""
+    normal = torch.zeros(5, dtype=like.dtype, device=like.device)
+    normal[2:4] = 1.0
+    return normal
+
+
 def _masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.sum(values * mask) / torch.clamp(torch.sum(mask), min=1)
 
@@ -71,9 +80,8 @@ def prediction_loss(
 
     # padded scenes carry zeroed normals (sigma = 0): a safe unit Gaussian
     # goes in before the division, so neither value nor gradient is NaN
-    safe = torch.tensor([0.0, 0.0, 1.0, 1.0, 0.0], dtype=inputs.dtype, device=inputs.device)
     m = scene_mask[None, :, None]
-    inputs = torch.where(m, inputs, safe)
+    inputs = torch.where(m, inputs, unit_normal(inputs))
     targets = torch.where(m, targets, torch.zeros((), dtype=targets.dtype,
                                                   device=targets.device))
 

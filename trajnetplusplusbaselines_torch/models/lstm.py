@@ -264,7 +264,11 @@ class LSTM:
             return self.step
 
         def remat_step(*args, **kwargs):
-            return checkpoint(self.step, *args, use_reentrant=False, **kwargs)
+            # the step draws no random numbers, so there is no RNG state to
+            # keep for its recomputation (reading the card's would refuse a
+            # CUDA graph's capture)
+            return checkpoint(self.step, *args, use_reentrant=False, preserve_rng_state=False,
+                              **kwargs)
 
         return remat_step
 

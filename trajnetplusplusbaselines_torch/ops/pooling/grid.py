@@ -160,6 +160,22 @@ class GridBasedPooling:
             return hidden_grid
         return torch.cat([rel_vel, hidden_grid], dim=-1)  # dir_social
 
+    def cell_frame(self, like: torch.Tensor):
+        """(side, offset): the cell side ``[]`` and the agent's offset in
+        cells ``[2]`` (the grid's centre, or with ``front`` its edge along
+        the second axis) in ``like``'s dtype and device, made there: a copy
+        from host memory cannot be captured in a CUDA graph.  The side is a
+        tensor divisor: PyTorch turns division by a Python scalar on the card
+        into a multiply by its reciprocal, which moves neighbours that sit
+        on a cell boundary into the next cell."""
+        nps = self.n * self.pool_size
+        kw = dict(dtype=like.dtype, device=like.device)
+        side = torch.full((), self.cell_side / self.pool_size, **kw)
+        offset = torch.full((2,), nps / 2.0, **kw)
+        if self.front:
+            offset[1] = 0.0
+        return side, offset
+
     def last_write(self, obs1, obs2, present1, present2, hidden=None, params=None):
         """The last-write grid ``[S, A, D, nps, nps]`` before blur and
         ``pool_size``, from positions ``[S, A, 2]`` at t-1 and t, presence
@@ -170,12 +186,7 @@ class GridBasedPooling:
         values = self._grid_values(hidden, obs1, obs2, present1, present2, params)
 
         rel = obs2[:, None, :, :] - obs2[:, :, None, :]  # rel[s, i, j] = pos_j - pos_i
-        # a tensor divisor: PyTorch turns division by a Python scalar on the
-        # card into a multiply by its reciprocal, which moves neighbours that
-        # sit on a cell boundary into the next cell
-        side = torch.tensor(self.cell_side / self.pool_size, dtype=rel.dtype, device=rel.device)
-        offset = torch.tensor([nps / 2.0, 0.0 if self.front else nps / 2.0], dtype=rel.dtype,
-                              device=rel.device)
+        side, offset = self.cell_frame(rel)
         oij = rel / side + offset
 
         visible = present2[:, None, :] & present2[:, :, None]

@@ -438,8 +438,13 @@ def f32_model(model):
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Every group's learning rate; a tensor one (``graphs.capturable_optimizer``'s,
+    read by captured graphs) is filled in place, so the graphs read the new rate."""
     for group in optimizer.param_groups:
-        group["lr"] = lr
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
 
 
 def step_lr(lr: float, step_size: Optional[int], gamma: float = 0.1):

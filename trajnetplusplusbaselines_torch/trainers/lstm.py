@@ -16,6 +16,16 @@ global-norm clip and an Adam update.  The epoch visits the buckets of
 ``ResidentDataset.epoch_plan``, batch by batch, with the losses kept on the
 device and read once at the end of the epoch.
 
+On one card in one process (``graphs.takes_graphs``) the step replays a
+CUDA graph, one per batch shape (``graphs.StepGraphs``: three eager steps
+on a side stream, then a capture, then replays into static buffers).  On
+the card Adam takes its capturable form (``graphs.capturable_optimizer``:
+the step count and the learning rate there, the rate filled in place by
+``set_lr``), on a mesh too, where the step stays eager, so that sharded
+ranks step as one process does.  A replay computes the eager step's
+numbers; ``loss_and_grads`` and validation stay eager, and so does every
+step on the CPU.
+
 Where each step runs is ``models/lstm.LSTM.route``.  On the card every
 directional grid within the grid stage's range (a goal D-LSTM, other
 embeddings, other n) launches the grid stage of the fused kernel
@@ -96,6 +106,7 @@ from .common import (
     setup_logging,
     step_lr,
 )
+from .graphs import StepGraphs, capturable_optimizer, takes_graphs
 
 
 # the scene axis of ``LSTM.forward``'s (and ``VAE.forward``'s) tensor arguments
@@ -108,6 +119,8 @@ class Trainer(EpochLoop):
     layout) live on one device; the leaves are trained in place."""
 
     predictor_class = LSTMPredictor  # what ``save_checkpoint`` pickles
+    # on the card, Adam in the form a CUDA graph can hold (``capturable_optimizer``)
+    capturable_adam = True
     # the scene axis of each forward output: rel_pred, pred, valid [T', S, A, ...]
     output_scene_dims = (1, 1, 1)
 
@@ -125,7 +138,12 @@ class Trainer(EpochLoop):
         for leaf in self.leaves:
             leaf.requires_grad_()
         self.device = self.leaves[0].device
-        self.optimizer = make_optimizer(self.leaves)
+        # on the card Adam keeps its step count and rate there (a graph can
+        # hold it), on a mesh too, so that ranks step as one process does
+        capturable = self.capturable_adam and self.device.type == "cuda"
+        self.optimizer = (capturable_optimizer if capturable else make_optimizer)(self.leaves)
+        # in one process on the card ``train_step`` replays CUDA graphs
+        self.graphs = StepGraphs(self.optimizer) if takes_graphs(self.device, self.mesh) else None
         self.clip_grad = clip_grad
         self.lr_schedule = lr_schedule
         self.criterion = criterion
@@ -210,7 +228,15 @@ class Trainer(EpochLoop):
 
     def train_step(self, xy, mask, scene_mask, goals=None, slot_mask=None, start_length=None):
         """One optimizer step on one batch (a ``common.Batch``'s fields);
-        returns the loss, on the device."""
+        returns the loss, on the device.  A replay of the batch shape's CUDA
+        graph where the trainer has ``graphs``, else eager."""
+        sl = self.start_length if start_length is None else start_length
+        batch = (xy, mask, scene_mask, goals, slot_mask)
+        if self.graphs is None:
+            return self._step(*batch, sl)
+        return self.graphs.step(self._step, batch, sl)
+
+    def _step(self, xy, mask, scene_mask, goals, slot_mask, start_length):
         loss, grads = self.loss_and_grads(xy, mask, scene_mask, goals, slot_mask, start_length)
         optimizer_step(self.optimizer, self.leaves, grads, self.clip_grad, split=self.split,
                        mesh=self.mesh)

@@ -51,6 +51,7 @@ class Trainer(lstm_trainer.Trainer):
     """Trains a ``VAE``; the LSTM trainer's loop, batches and checkpoints."""
 
     predictor_class = VAEPredictor
+    capturable_adam = False  # its own ``train_step`` is eager: ``make_optimizer``'s Adam
     # rel_pred, pred, valid [k, T', S, A, ...], z_distr_xy and z_distr_x [S, A, 2 latent]
     output_scene_dims = (2, 2, 2, 0, 0)
 
