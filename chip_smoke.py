@@ -20,11 +20,11 @@ PyTorch built for CUDA (no jax needed).  Phases, one line each:
    at row counts off the kernel's 64-row tile (3 x 7, 1 x 1, 65 x 8);
 4. rollout: ``LSTM.forward(n_predict=12)`` at full width, kernel against
    plain, positions within 1e-3 m free and within 4e-5 m along the fused
-   rollout's own trajectory (``along_positions``: the plain step fed that
-   rollout's inputs, so both see the same grids), 19 kernel launches per
-   rollout, and the per-step and per-rollout times of both (CUDA events,
-   after warm-up), at the CLI's own batch (64 scenes of 8 agents) and two
-   larger ones;
+   rollout's own trajectory (``along_positions``: the model's step on the
+   CPU fed that rollout's inputs, so both see the same grids), 19 kernel
+   launches per rollout, and the per-step and per-rollout times of both
+   (CUDA events, after warm-up), at the CLI's own batch (64 scenes of 8
+   agents) and two larger ones;
    (b) the fused kernel's device time per launch (``torch.profiler``) at
    those three shapes and at the bench cell's 1,048,576 rows, its bound
    (3xTF32 on the tensor cores or the bytes, whichever is larger) and the
@@ -87,9 +87,15 @@ PyTorch built for CUDA (no jax needed).  Phases, one line each:
    latent 16, neigh 4, mp_iters 5):
    (a) ``LSTM.forward(n_predict=12)`` at S=64, A=8 and S=256, A=32 for the
        ten pooled types, a two-layer S-LSTM, an ``lstm_layer`` D-LSTM, a
-       goal D-LSTM and a D-LSTM at n=8, hidden 64: positions within 1e-3 m
-       of a CPU run of the same params and inputs (nearest neighbours drawn
-       ``NEIGHBOUR_GAP`` apart), each rollout timed, and the launch counters
+       goal D-LSTM and a D-LSTM at n=8, hidden 64, each read on its first
+       ``POOL_CPU_SCENES`` scenes against the CPU, the same params and
+       inputs (nearest neighbours drawn ``NEIGHBOUR_GAP`` apart): positions
+       within 4e-5 m along the card's own rollout (``along_positions``: the
+       model's own step on the CPU fed that rollout's inputs at every step,
+       its carry, goals and slot mask its own; the worst scene, step and
+       agent printed) and within 1e-3 m of a free CPU run; an along reading
+       over 4e-5 m raises once every model has been read, naming each;
+       each rollout timed, and the launch counters
        zeroed before and read after each: 19 grid-stage launches and no
        fused launch for every directional grid off the flagship's widths,
        19 fused launches for the flagship; the grid stage alone against
@@ -109,8 +115,12 @@ PyTorch built for CUDA (no jax needed).  Phases, one line each:
 8. generative (the SGAN and the VAE), at the flagship's widths, noise 16,
    latent 128 with ``desire``, k=3 modes folded into one decoder batch:
    (a) rollouts at S=64, A=8 and S=256, A=32: 19 fused-step launches per
-       rollout, positions within 1e-3 m of a CPU run on the same noise or
-       latent normals, times (CUDA events) as a range over 3 windows;
+       rollout; on the first ``POOL_CPU_SCENES`` scenes of each mode,
+       positions within 4e-5 m along the card's own rollout (the CPU's
+       decoder starts from the same noise or latent normals and decodes the
+       k modes as one mode-major batch, each mode along its own rows of the
+       card's rollout) and within 1e-3 m of a free CPU run, raising as
+       phase 7(a) does; times (CUDA events) as a range over 3 windows;
    (b) an SGAN generator and discriminator step and a VAE step at batch 8
        against f64 on the CPU at phase 7c's tolerances, label and draws
        pinned, with their launches (19 grid-stage; 19 fused and 40
@@ -235,9 +245,11 @@ STEP_EDGES = ((3, 7), (1, 1), (65, 8))  # phase 3: below one tile, one row, a pa
 SERVE_PASSES = 5
 CELL_SIDE, N = 0.6, 12
 STEP_ATOL, STEP_RTOL = 2e-5, 1e-4
+# metres: the free readings of phases 4, 7(a) and 8(a), a card's rollout
+# against a CPU run of its own
 POSITION_ATOL = 1e-3
-# metres: phase 4's rollouts along their own trajectory, and phase 4c's
-# departures (``bench_torch.POSITION_ATOL``)
+# metres: the rollouts of phases 4, 7(a) and 8(a) along their own trajectory
+# (``along_positions``), and phase 4c's departures (``bench_torch.POSITION_ATOL``)
 ALONG_ATOL = 4e-5
 PARTING_SEEDS = range(5)  # phase 4c: the bench's rollout cell at these seeds
 TRAIN_BATCH, TRAIN_EPOCHS = 8, 2  # the trainer's default batch
@@ -1128,33 +1140,97 @@ def device_phase(dev, rng, model, params, rollout_ms) -> dict:
     return {"shapes": shapes, "prep": prep, "grid": grid}
 
 
-def along_positions(params, xy, mask, pred, valid):
-    """Phase 4's along reading: each step's position from the plain step
-    (``fused_dlstm_step_plain``) run along the flagship's rollout ``pred`` /
-    ``valid`` of ``xy`` / ``mask``.  Every step reads that rollout's own
-    inputs (the observed frames, then its positions and validity, the
-    primary's first decoder input as ``LSTM.start_decoder`` makes it); h and
-    c are the plain step's own.  Both sides see the same grids, so the
-    difference from ``pred`` is the kernel's arithmetic, step by step."""
-    from trajnetplusplusbaselines_torch.ops.cuda import fused_step
+def along_positions(params, xy, mask, pred, valid, model=None, *, draws=None, goals=None,
+                    slot_mask=None):
+    """The along reading of a rollout made on the card: the positions that
+    ``model``'s own step (``LSTM.step``, through its ``forward``) gives on
+    the CPU, in the dtype of ``params``, when each of its 19 steps reads the
+    inputs of the rollout ``pred`` / ``valid`` of ``xy`` / ``mask``: the
+    observed frames, then that rollout's positions and validity, the
+    primary's first decoder input as ``LSTM.start_decoder`` makes it (the
+    rollout's ``pred[obs_len - 3]``).  The carry (h, c and a stateful pool's
+    state), the goals and the slot mask are the CPU's own.  Both sides see
+    the same inputs at every step, so the difference from ``pred`` is each
+    step's arithmetic, never a parting of two rollouts at a grid cell edge.
 
+    model: an ``LSTM`` of ``pool_models`` (the flagship by default), pred
+    [19, S, A, 2]; or an SGAN or a VAE of ``generative_models``, pred [k,
+    19, S, A, 2] and its ``draws`` (the noise [k, noise_dim], or the latent
+    normals [k, S, A, latent]): the CPU builds the decoder's start with the
+    model's own ``start_decoder`` and the same draws and decodes the k modes
+    as one mode-major batch, each along its own mode's rows.  Returns
+    positions shaped like ``pred``, on the CPU."""
+    from trajnetplusplusbaselines_torch.models.lstm import join_modes
+    from trajnetplusplusbaselines_torch.models.sgan import SGAN
+    from trajnetplusplusbaselines_torch.models.vae import VAE
+    from trajnetplusplusbaselines_torch.utils.convert import params_to
+
+    model = flagship_model() if model is None else model
+    params = params_to(params, "cpu")
+    xy, mask, pred, valid = (x.cpu().contiguous() for x in (xy, mask, pred, valid))
+    goals, slot_mask, draws = (None if x is None else x.cpu() for x in (goals, slot_mask, draws))
+    folded = pred.dim() == 5
+    if not folded:
+        pred, valid = pred[None], valid[None]
+    modes, steps, s, a = pred.shape[:4]
     obs_len = xy.shape[0]
-    h = c = xy.new_zeros(*xy.shape[1:3], 128)
+    # the decoder's inputs, mode m in rows m * S .. (m + 1) * S - 1
+    seq = pred.transpose(0, 1).reshape(steps, modes * s, a, 2).contiguous()
+    seq_valid = valid.transpose(0, 1).reshape(steps, modes * s, a).contiguous()
+    stepping = model.generator if isinstance(model, SGAN) else model
     out = []
-    for t in range(pred.shape[0]):
+
+    def along_step(params, cell, carry, obs1, obs2, p1, p2, *args, **kw):
+        t = len(out)
         if t < obs_len - 1:
             obs1, obs2, p1, p2 = xy[t], xy[t + 1], mask[t], mask[t + 1]
         else:
             if t == obs_len - 1:
-                obs1, p1 = xy[-1].clone(), mask[-1].clone()
-                obs1[:, 0], p1[:, 0] = pred[t - 2][:, 0], valid[t - 2][:, 0]
+                obs1, p1 = xy[-1].repeat(modes, 1, 1), mask[-1].repeat(modes, 1)
+                obs1[:, 0], p1[:, 0] = seq[t - 2][:, 0], seq_valid[t - 2][:, 0]
             else:
-                obs1, p1 = pred[t - 2], valid[t - 2]
-            obs2, p2 = pred[t - 1], valid[t - 1]
-        w = fused_step.weights_from_params(params, "encoder" if t < obs_len - 1 else "decoder")
-        h, c, normal, m = fused_step.fused_dlstm_step_plain(obs1, obs2, p1, p2, h, c, w)
+                obs1, p1 = seq[t - 2], seq_valid[t - 2]
+            obs2, p2 = seq[t - 1], seq_valid[t - 1]
+        carry, normal, m = stepping.step(params, cell, carry, obs1, obs2, p1, p2, *args, **kw)
         out.append((obs2 + normal[..., :2]) * m[..., None])
-    return torch.stack(out)
+        return carry, normal, m
+
+    kw = dict(n_predict=steps - obs_len + 2, goals=goals, slot_mask=slot_mask)
+    with torch.no_grad(), mock.patch.object(stepping, "step_fn", lambda params: along_step):
+        if isinstance(model, SGAN):
+            model.generate(params, xy, mask, modes=modes, noise=draws, **kw)
+        elif isinstance(model, VAE):
+            model.forward(params, xy, mask, training=False, modes=modes, eps=draws, **kw)
+        else:
+            model.forward(params, xy, mask, **kw)
+    if len(out) != steps:
+        raise AssertionError(f"the along reading ran {len(out)} steps, the rollout {steps}")
+    if not folded:
+        return torch.stack(out)
+    return join_modes(out[:obs_len - 1], out[obs_len - 1:], modes)
+
+
+def along_reading(params, xy, mask, pred, valid, model=None, **kw) -> dict:
+    """``along_positions``' largest difference from ``pred`` over ``valid``
+    positions (``max_position_err_m``), where it lies (``worst_along``: its
+    mode, if ``pred`` has modes, step, scene and agent) and the seconds the
+    reading took (``along_seconds``, host clock)."""
+    t0 = time.perf_counter()
+    along = along_positions(params, xy, mask, pred, valid, model, **kw)
+    pred, valid = pred.cpu(), valid.cpu()
+    err = torch.where(valid, (along - pred).abs().amax(dim=-1), torch.zeros((), dtype=pred.dtype))
+    where = np.unravel_index(int(err.argmax()), tuple(err.shape))
+    names = ("mode", "step", "scene", "agent")[-err.dim():]
+    return {"max_position_err_m": float(err.max()),
+            "worst_along": dict(zip(names, map(int, where))),
+            "along_seconds": time.perf_counter() - t0}
+
+
+def raise_on_along(failures):
+    """Raise, naming each rollout read over ``ALONG_ATOL``, if any was."""
+    if failures:
+        raise AssertionError(f"positions along the card's own rollout differ from the CPU "
+                             f"step's by more than {ALONG_ATOL} m: " + "; ".join(failures))
 
 
 def one_step_errors(params, observed):
@@ -1420,9 +1496,10 @@ def pools_phase(dev, rng) -> dict:
     counters = Launches()
     zero, read = counters.zero, counters.read
 
-    # (a) rollouts of every pool at two shapes, card against CPU
+    # (a) rollouts of every pool at two shapes, card against CPU: free, and
+    # along the card's own rollout (``along_positions``)
     inputs = {shape: pool_inputs(rng, *shape, dev) for shape in POOL_ROLLOUTS}
-    rollout_ms = {}
+    rollout_ms, along_failures = {}, []
     for name, model in pool_models().items():
         params = model.init_params(torch.Generator().manual_seed(7), device=dev)
         cpu_params = params_to(params, "cpu")
@@ -1449,12 +1526,17 @@ def pools_phase(dev, rng) -> dict:
             if err > POSITION_ATOL:
                 raise AssertionError(f"{name}: positions differ from the CPU's by {err} m "
                                      f"at S={s} A={a}")
+            along = along_reading(params, xy[:, :k], mask[:, :k], pred[:, :k], valid[:, :k],
+                                  model, goals=goals[:k], slot_mask=slot[:k])
+            if along["max_position_err_m"] > ALONG_ATOL:
+                along_failures.append(f"{name} at S={s} A={a}: {along}")
             with torch.no_grad():
                 ms = time_ms(lambda: model.forward(params, xy, mask, **kw), reps=5, warmup=2)
             rollout_ms[(name, s, a)] = ms
             say("pools_rollout", model=name, s=s, a=a, route=route, launches=launches,
-                max_position_err_m=err, cpu_scenes=k, rollout_ms=ms,
-                rollout_scenes_per_s=s / ms * 1e3)
+                **along, free_max_position_err_m=err, along_atol_m=ALONG_ATOL, cpu_scenes=k,
+                rollout_ms=ms, rollout_scenes_per_s=s / ms * 1e3)
+    raise_on_along(along_failures)
 
     # the grid stage alone at the geometries the grid route gives it: n=8,
     # n=12, n=12 with front, and pool_size 2 (side 24 at half the cell);
@@ -1674,9 +1756,11 @@ def generative_phase(dev, rng, card) -> dict:
     """Phase 8: the SGAN and the VAE, served and trained, on the card.
 
     (a) rollouts of GEN_MODES modes folded at GEN_ROLLOUTS: 19 fused-step
-        launches per rollout whatever the modes, positions within 1e-3 m of
-        a CPU run of the same model on the same draws (its first
-        POOL_CPU_SCENES scenes), and each rollout's time (CUDA events) over
+        launches per rollout whatever the modes; on its first
+        POOL_CPU_SCENES scenes of each mode, positions within ALONG_ATOL
+        along the card's own rollout (``along_positions``) and within
+        POSITION_ATOL of a free CPU run of the same model on the same
+        draws; and each rollout's time (CUDA events) over
         GEN_TIMED_REPEATS windows of GEN_TIMED_REPS rollouts, as a range;
     (b) ``generative_steps``;
     (c) ``trainers.sgan.main`` (--k 3) and ``trainers.vae.main`` (--k 3),
@@ -1707,7 +1791,7 @@ def generative_phase(dev, rng, card) -> dict:
     params = {kind: model.init_params(torch.Generator().manual_seed(11), device=dev)
               for kind, model in models.items()}
     gen = torch.Generator().manual_seed(12)
-    rollout_ms = {}
+    rollout_ms, along_failures = {}, []
     for kind, model in models.items():
         cpu_params = params_to(params[kind], "cpu")
         for s, a in GEN_ROLLOUTS:
@@ -1719,9 +1803,9 @@ def generative_phase(dev, rng, card) -> dict:
             pred, valid = generative_rollout(kind, model, params[kind], xy, mask, card_draws)
             launches = read({"fused_dlstm_step": 19, "directional_grid": 0})
             k = POOL_CPU_SCENES
+            cpu_draws = draws if kind == "sgan" else draws[:, :k]
             cpu_pred, cpu_valid = generative_rollout(
-                kind, model, cpu_params, xy[:, :k].cpu(), mask[:, :k].cpu(),
-                draws if kind == "sgan" else draws[:, :k])
+                kind, model, cpu_params, xy[:, :k].cpu(), mask[:, :k].cpu(), cpu_draws)
             if pred.shape != (GEN_MODES, 19, s, a, 2) or not torch.isfinite(pred).all():
                 raise AssertionError(f"{kind}: positions are not finite [k, 19, S, A, 2]")
             if not torch.equal(valid[:, :, :k].cpu(), cpu_valid):
@@ -1730,6 +1814,10 @@ def generative_phase(dev, rng, card) -> dict:
             if err > POSITION_ATOL:
                 raise AssertionError(f"{kind}: positions differ from the CPU's by {err} m "
                                      f"at S={s} A={a}")
+            along = along_reading(params[kind], xy[:, :k], mask[:, :k], pred[:, :, :k],
+                                  valid[:, :, :k], model, draws=cpu_draws)
+            if along["max_position_err_m"] > ALONG_ATOL:
+                along_failures.append(f"{kind} at S={s} A={a}: {along}")
             spread = float((pred[0] - pred[1])[valid[0]].abs().max())
             if not spread > 0:
                 raise AssertionError(f"{kind}: the modes are the same rollout")
@@ -1739,8 +1827,10 @@ def generative_phase(dev, rng, card) -> dict:
                   for i in range(GEN_TIMED_REPEATS)]
             rollout_ms[(kind, s, a)] = ms
             say("generative_rollout", model=kind, s=s, a=a, modes=GEN_MODES, launches=launches,
-                max_position_err_m=err, cpu_scenes=k, mode_spread_m=spread,
-                rollout_ms=[min(ms), max(ms)], rollout_scenes_per_s=s / min(ms) * 1e3, card=card)
+                **along, free_max_position_err_m=err, along_atol_m=ALONG_ATOL, cpu_scenes=k,
+                mode_spread_m=spread, rollout_ms=[min(ms), max(ms)],
+                rollout_scenes_per_s=s / min(ms) * 1e3, card=card)
+    raise_on_along(along_failures)
 
     steps = {kind: generative_steps(kind, models[kind], params[kind], dev, rng, card, counted)
              for kind in models}
@@ -2851,14 +2941,15 @@ def main() -> int:
         pos_err = float((pred - pred_p)[valid].abs().max())
         if pos_err > POSITION_ATOL:
             raise AssertionError(f"rollout positions differ by {pos_err} m at S={s} A={a}")
-        along_err = float((along_positions(params, xy, mask, pred, valid) - pred)[valid]
-                          .abs().max())
+        along = along_reading(params, xy, mask, pred, valid, model)
+        along_err = along["max_position_err_m"]
         if along_err > ALONG_ATOL:
             raise AssertionError(f"rollout positions along the fused rollout differ by "
                                  f"{along_err} m at S={s} A={a}")
         times[(s, a)] = rollout_times(s, a)
         say("rollout", s=s, a=a, launches=launches, max_position_err_m=pos_err,
-            along_max_position_err_m=along_err, **times[(s, a)])
+            along_max_position_err_m=along_err, along_seconds=along["along_seconds"],
+            **times[(s, a)])
 
     # ---- 4b: the fused step's device time, bound and library yardstick
     device = device_phase(dev, np.random.default_rng(2), model, params,
