@@ -55,7 +55,9 @@ PyTorch built for CUDA (no jax needed).  Phases, one line each:
    test split, and ``trainers.lstm.main([... "--device", "cuda"])`` training
    the flagship D-LSTM for 2 epochs at batch 8; the counters are zeroed just
    before and read just after: the grid kernel launches 19 times per train
-   batch, the fused step 2 x 19 times per val batch (validation records no
+   batch, and so does each per-step kernel of the fused train route (6c;
+   ``fused_train_in_backward`` and the loss's two kernels once), the fused
+   step 2 x 19 times per val batch (validation records no
    autograd, so its teacher-forced pass and its free rollout both run it).
    Every logged loss is finite, epoch 2's train loss is below epoch 1's, and
    the written pickle serves the test part through ``lstm_cli``.  One train
@@ -82,6 +84,20 @@ PyTorch built for CUDA (no jax needed).  Phases, one line each:
    (``install_graph_counting``), each replay counts them, and the counts
    ``trainers/graphs.StepGraphs`` adds to the wrappers' counters a replay
    must equal them;
+6c. fused train: the flagship's teacher-forced rollout under autograd as
+   ``ops/cuda/fused_train.FusedTrainRollout`` and its loss as
+   ``FusedPredictionLoss`` (the route of every flagship train step above):
+   (a) their six kernels against their plain versions at 64 and 8,192 rows
+   (1e-6 of each output's largest magnitude, masks equal), each one's time
+   a call and a launch at 64 rows, its bound (the bytes) and its plain
+   version's time; (b) the route's loss and every leaf's gradient against
+   the grid route's on one batch (defaults, a collision term,
+   ``start_length`` 3), 1e-5 of each leaf's largest (the loss: of its own
+   magnitude or the batch size), each run's launches read exactly; (c) one
+   ``train_step``'s launches, eager and replayed: 19 grid, 19 of each
+   per-step kernel, one ``fused_train_in_backward`` and one of each loss
+   kernel; (d) ``train_step`` at batch 8 on graphs, this route against the
+   grid route in turns: ms a step, device events and device time a step;
 7. pools (the main path's other interaction modules), at the trainer's
    default widths (hidden 128, embedding 64, pool 256, n 12, cell 0.6 m,
    latent 16, neigh 4, mp_iters 5):
@@ -230,7 +246,7 @@ from unittest import mock
 import numpy as np
 import torch
 
-from roofline import FLOP_PER_ROW, card_line, grid_bound_ms, step_bound
+from roofline import FLOP_PER_ROW, PEAK_BYTES, card_line, grid_bound_ms, step_bound
 
 REPO = Path(__file__).resolve().parent
 DEVICE = "cuda"
@@ -324,6 +340,20 @@ GRAPH_EPOCHS = 3
 GRAPH_SEED = 13
 GRAPH_RTOL_FLOOR = 1e-6  # the limit's floor, where two eager runs agree closer
 GRAPH_LEFT_OUT = 2  # the control's step left out, counted from 1
+# phase 6c: the fused train route (``ops/cuda/fused_train.py``); its kernels
+# against their plain versions at (scenes, agents): the bench's train step
+# (64 rows) and 8,192 rows; within TRAIN_KERNEL_RTOL of each output's
+# largest magnitude (f32 rounding: expf and tanhf against torch's, the
+# order of Hidden2Normal's sums and of the K = 2 embedding)
+TRAIN_KERNELS = ("fused_train_in", "fused_train_cell", "fused_train_cell_backward",
+                 "fused_train_in_backward", "fused_train_loss", "fused_train_loss_backward")
+TRAIN_KERNEL_SHAPES = ((TRAIN_BATCH, 8), (1024, 8))
+TRAIN_KERNEL_RTOL = 1e-6
+TRAIN_KERNEL_REPS = 50  # launches per timed or profiled window
+# the route's loss and each leaf's gradient against the grid route's on one
+# batch, of the leaf's largest magnitude: two f32 orders of the same sums
+FUSED_TRAIN_RTOL = 1e-5
+FUSED_TRAIN_TIMED_STEPS = 100  # graph replays per timed window of a train step
 
 
 def host_ms(fn, reps=20, warmup=2) -> float:
@@ -815,7 +845,9 @@ def train_phase(dev, rng) -> dict:
             n_train, n_val = len(train_ds), len(val_ds)
             want = {"fused_dlstm_step": 2 * 19 * val_batches * TRAIN_EPOCHS,
                     "directional_grid": 19 * train_batches * TRAIN_EPOCHS,
-                    "directional_grid_bf16": 0}
+                    "directional_grid_bf16": 0,
+                    **fused_train_launches(19 * train_batches * TRAIN_EPOCHS,
+                                           train_batches * TRAIN_EPOCHS)}
             if train_launches != want:
                 raise AssertionError(f"training launched {train_launches}, expected {want}")
             out = f"OUTPUT_BLOCK/synth_train/{name}.pkl"
@@ -989,8 +1021,9 @@ def graph_phase(dev, rng, card) -> dict:
                                "moments": moments, "losses": torch.from_numpy(
                                    trainer.epoch_losses.copy()), "ms": ms})
         steps = epochs * len(trainer.epoch_losses) - (kind == "left_out")
-        grid = "directional_grid"
-        launches = counters.read({grid: (38 if remat else 19) * steps}, add=kind == "graphs")
+        want = ({"directional_grid": 38 * steps} if remat else
+                {"directional_grid": 19 * steps, **fused_train_launches(19 * steps, steps)})
+        launches = counters.read(want, add=kind == "graphs")
         captured = 0 if trainer.graphs is None else len(trainer.graphs.graphs)
         return epochs_out, launches, captured, steps, trainer
 
@@ -1054,6 +1087,226 @@ def graph_phase(dev, rng, card) -> dict:
                         max(rows[-1]["left_out"]["leaves"], rows[-1]["left_out"]["moments"]),
                         card), flush=True)
     return {"launches": runs["graphs"][1], "figures": figures}
+
+
+def train_kernel_case(name, rng, s, a, dev, params) -> tuple:
+    """One fused train kernel's arguments at [S, A] and the flagship's
+    widths (``fused_train_in_backward``: a rollout's 19 steps of rows), drawn
+    from ``rng``, every buffer it writes filled at random too, so that the
+    kernel and its plain version start from the same values; the indices of
+    the arguments it writes; and the bytes it must move (each input read
+    once, each output written once)."""
+    hidden = params["hidden2normal"]["linear"]["w"].shape[0]
+    lin = params["input_embedding"]["linear"]["w"].shape[1]
+    pool = params["pool"]["embedding"][0]["w"].shape[1]
+    x_width = lin + 2 + pool
+    ld, r = x_width + hidden + 1, s * a
+
+    def f(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    def b(*shape):
+        return torch.from_numpy(rng.random(shape) > 0.2).to(dev)
+
+    h2n = params["hidden2normal"]["linear"]
+    if name == "fused_train_in":
+        emb = params["input_embedding"]["linear"]
+        args = (f(s, a, 2), f(s, a, 2), b(s, a), b(s, a), f(r, pool), emb["w"], emb["b"],
+                params["pool"]["embedding"][0]["b"], f(r, ld), f(r, 3), b(r))
+        nbytes = r * (2 * 8 + 2 + 4 * pool) + 4 * (3 * lin + pool) + r * (4 * (x_width + 1) + 13)
+        return args, (8, 9, 10), nbytes
+    if name == "fused_train_cell":
+        args = (2 * f(r, 4 * hidden), f(r, ld), f(r, hidden), b(r), f(r, 2), h2n["w"], h2n["b"],
+                f(r, ld), f(r, hidden), f(r, 4 * hidden), f(r, hidden), f(r, 3), f(r, 5),
+                f(r, 2), (f(s, a, 2), b(s, a)))
+        nbytes = (r * (4 * 6 * hidden + 9) + 4 * 6 * hidden
+                  + r * (4 * (7 * hidden + 1) + 40) + 9 * s)
+        return args, (7, 8, 9, 10, 11, 12, 13, 14), nbytes
+    if name == "fused_train_cell_backward":
+        args = (f(r, 5), f(r, 2), b(r), torch.sigmoid(f(r, 3)), torch.sigmoid(f(r, 4 * hidden)),
+                torch.tanh(f(r, hidden)), f(r, hidden), h2n["w"], f(r, hidden), f(r, hidden),
+                f(r, hidden), f(r, 4 * hidden), f(r, 5))
+        nbytes = r * (41 + 4 * 9 * hidden) + 4 * 5 * hidden + r * (4 * 6 * hidden + 20)
+        return args, (9, 10, 11, 12), nbytes
+    if name == "fused_train_in_backward":
+        n = 19 * r
+        return (f(n, x_width), f(n, ld)), (0,), 3 * 4 * n * x_width
+    # the loss: the trainer's 12 predicted steps of the primaries, sigmas
+    # and rho in the head's ranges, one scene in eight padded
+    p, rel = 12, f(19, s, a, 5)
+    rel[..., 2:4] = 0.01 + 0.2 * torch.sigmoid(rel[..., 2:4])
+    rel[..., 4] = 0.7 * torch.sigmoid(rel[..., 4])
+    scenes = torch.arange(s, device=dev) % 8 != 7
+    if name == "fused_train_loss":
+        args = (rel, 0.1 * f(p, s, 2), scenes, f(), f(), f(p, s, 5))
+        return args, (3, 4, 5), 4 * (p * s * 7 + 2 + p * s * 5) + s
+    args = (8.0 + f(), f(p, s, 5), 60.0 + f(), f(19, s, a, 5))
+    return args, (3,), 4 * (2 + p * s * 5 + 19 * r * 5)
+
+
+def run_train_kernel(fn, args, writes) -> list:
+    """``fn`` on copies of ``args``; the written tensors, flat."""
+    copies = [tuple(x.clone() for x in a) if isinstance(a, tuple) else a.clone()
+              for a in args]
+    fn(*copies)
+    return [x for i in writes
+            for x in (copies[i] if isinstance(copies[i], tuple) else (copies[i],))]
+
+
+def fused_train_phase(dev, rng, card) -> dict:
+    """Phase 6c: the fused train route (``ops/cuda/fused_train.py``).  (a)
+    Each of its six kernels against its plain version at
+    ``TRAIN_KERNEL_SHAPES``, within ``TRAIN_KERNEL_RTOL`` of each output's
+    largest magnitude (masks equal), with its time a call and a launch at
+    the train step's 64 rows beside its bound (its bytes at the memory's
+    rate), the plain version's time and, for the relu masks, the one
+    PyTorch call of the same function (``threshold_backward``).  (b) The
+    route's loss and every leaf's gradient against the grid route's (and
+    the plain loss's) on one batch (the trainer's defaults, a collision
+    term, ``start_length`` 3), each leaf within ``FUSED_TRAIN_RTOL`` of its
+    largest magnitude, the loss within it of its own magnitude or of the
+    batch size, whichever is larger (the NLL sums terms of both signs, one
+    nat or so a scene, so the sum can sit near zero), each run's launches
+    read exactly.  (c) The launches of one ``train_step``, eager and
+    replayed from its CUDA graph: 19 grid, 19 of each per-step kernel, one
+    ``fused_train_in_backward`` and one of each loss kernel.  (d)
+    ``train_step`` at batch 8 on CUDA graphs, the fused train route against
+    the grid route in turns: ms a step (CUDA events over back to back
+    replays) and the device events and device time a step
+    (``torch.profiler``).  Returns its launches and figures."""
+    from torch.utils._pytree import tree_map
+
+    from trajnetplusplusbaselines_torch.ops.cuda import fused_train
+    from trajnetplusplusbaselines_torch.trainers import graphs
+    from trajnetplusplusbaselines_torch.trainers.common import step_lr
+    from trajnetplusplusbaselines_torch.trainers.lstm import Trainer
+
+    t_phase = time.perf_counter()
+    model = flagship_model()
+    params = model.init_params(torch.Generator().manual_seed(GRAPH_SEED), device=dev)
+    counters = Launches()
+
+    # (a) each kernel against its plain version
+    kernels = {}
+    for name in TRAIN_KERNELS:
+        wrapper, plain = getattr(fused_train, name), getattr(fused_train, name + "_plain")
+        row = {"max_abs_err": 0.0, "max_rel_err": 0.0}
+        for s, a in TRAIN_KERNEL_SHAPES:
+            args, writes, nbytes = train_kernel_case(name, rng, s, a, dev, params)
+            got, want = run_train_kernel(wrapper, args, writes), run_train_kernel(plain, args,
+                                                                                  writes)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                if g.dtype == torch.bool:
+                    if not torch.equal(g, w):
+                        raise AssertionError(f"{name} at S={s} A={a}: a mask differs")
+                    continue
+                err = float((g - w).abs().max())
+                rel = err / max(float(w.abs().max()), 1e-30)
+                if not rel <= TRAIN_KERNEL_RTOL:
+                    raise AssertionError(f"{name} at S={s} A={a}: an output differs by {rel} of "
+                                         f"its largest, beyond {TRAIN_KERNEL_RTOL}")
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+                row["max_rel_err"] = max(row["max_rel_err"], rel)
+            if (s, a) != TRAIN_KERNEL_SHAPES[0]:
+                continue
+            # times at the train step's rows, on one set of buffers
+            copies = [tuple(x.clone() for x in v) if isinstance(v, tuple) else v.clone()
+                      for v in args]
+            row.update(
+                rows=s * a, bytes=nbytes, bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes",
+                ms=time_ms(lambda: wrapper(*copies), reps=TRAIN_KERNEL_REPS),
+                plain_ms=time_ms(lambda: plain(*copies), reps=TRAIN_KERNEL_REPS),
+                device_ms=kernel_ms_per_launch(lambda: wrapper(*copies), TRAIN_KERNEL_REPS,
+                                               f"{name}_kernel"),
+                library_ms=None)
+            if name == "fused_train_in_backward":
+                dx, xh = copies
+                x = xh[:, :dx.shape[1]]
+                row["library_ms"] = time_ms(
+                    lambda: torch.ops.aten.threshold_backward(dx, x, 0.0),
+                    reps=TRAIN_KERNEL_REPS)
+            row["bound_share"] = row["bound_ms"] / row["device_ms"]
+        kernels[name] = row
+        say("fused_train_kernel", kernel=name, shapes=TRAIN_KERNEL_SHAPES, card=card, **row)
+
+    # (b) the route against the grid route on one batch
+    batch = train_inputs(rng, TRAIN_BATCH, 8, dev)
+    def no_fused_train(*args, **kw):
+        return False
+    route_errs = {}
+    # the collision term at 3 m, so that most pairs collide and pred's
+    # gradient reaches the rollout
+    for label, options, call in (("defaults", {}, {}),
+                                 ("collision", {"col_wt": 2.0, "col_distance": 3.0}, {}),
+                                 ("start_length_3", {}, {"start_length": 3})):
+        trainer = Trainer(model, tree_map(lambda x: x.clone(), params), step_lr(1e-3, 10),
+                          **options)
+        steps = 19 - call.get("start_length", 0)
+        counters.zero()
+        fused = trainer.loss_and_grads(*batch, **call)
+        counters.read({"directional_grid": steps, **fused_train_launches(steps, 1)}, add=False)
+        with mock.patch.object(model, "takes_fused_train", no_fused_train):
+            counters.zero()
+            plain = trainer.loss_and_grads(*batch, **call)
+            counters.read({"directional_grid": steps}, add=False)
+        loss_scale = max(abs(float(plain[0])), TRAIN_BATCH)
+        route_errs[label] = {
+            "loss": abs(float(fused[0]) - float(plain[0])) / loss_scale,
+            "losses": [float(fused[0]), float(plain[0])],
+            "grads": largest_relative(fused[1], plain[1])}
+        if not max(route_errs[label]["loss"], route_errs[label]["grads"]) <= FUSED_TRAIN_RTOL:
+            raise AssertionError(f"{label}: the fused train route differs from the grid route "
+                                 f"by {route_errs[label]}, beyond {FUSED_TRAIN_RTOL}")
+    say("fused_train_route", against="grid route", rtol=FUSED_TRAIN_RTOL, card=card,
+        **route_errs)
+
+    # (c) a train step's launches, eager and replayed
+    want_step = {"directional_grid": 19, **fused_train_launches(19, 1)}
+    eager = Trainer(model, tree_map(lambda x: x.clone(), params), step_lr(1e-3, 10))
+    eager.graphs = None
+    counters.zero()
+    eager.train_step(*batch)
+    step_launches = {"eager": counters.read(want_step, add=False)}
+
+    def graph_trainer(run_model):
+        trainer = Trainer(run_model, tree_map(lambda x: x.clone(), params), step_lr(1e-3, 10))
+        for _ in range(graphs.WARM_CALLS + 2):  # eager, then captured and replayed
+            trainer.train_step(*batch)
+        if len(trainer.graphs.graphs) != 1:
+            raise AssertionError("the train step captured no graph")
+        return trainer
+
+    fast = graph_trainer(model)
+    counters.zero()
+    fast.train_step(*batch)
+    step_launches["replay"] = counters.read(want_step)
+
+    # (d) train steps on graphs, the fused train route against the grid route
+    grid_model = flagship_model()
+    grid_model.takes_fused_train = no_fused_train
+    slow = graph_trainer(grid_model)
+    timed = {"fused_train": [], "grid": []}
+    for label, trainer in (("fused_train", fast), ("grid", slow), ("grid", slow),
+                           ("fused_train", fast)):
+        ms = time_ms(lambda: trainer.train_step(*batch), reps=FUSED_TRAIN_TIMED_STEPS)
+        trace = profiled(lambda: trainer.train_step(*batch), 10, None,
+                         kernel="fused_train_cell_kernel" if label == "fused_train"
+                         else GRID_KERNEL)
+        timed[label].append({"ms_per_step": ms, "scenes_per_s": TRAIN_BATCH / ms * 1e3,
+                             "device_events_per_step": trace["device_events_per_rep"],
+                             "device_ms_per_step": trace["device_ms"] / trace["reps"]})
+    figures = {"kernels": kernels, "route_vs_grid": route_errs, "step_launches": step_launches,
+               "train_step": timed, "seconds": time.perf_counter() - t_phase}
+    say("fused_train", step_launches=step_launches, train_step=timed, card=card,
+        seconds=figures["seconds"])
+    print("Fused train route  S={} A=8: {:.3f} ms/step and {:.0f} device events on graphs, "
+          "the grid route {:.3f} and {:.0f} ({})".format(
+              TRAIN_BATCH, min(r["ms_per_step"] for r in timed["fused_train"]),
+              timed["fused_train"][0]["device_events_per_step"],
+              min(r["ms_per_step"] for r in timed["grid"]),
+              timed["grid"][0]["device_events_per_step"], card), flush=True)
+    return {"launches": step_launches["replay"], "figures": figures}
 
 
 def device_phase(dev, rng, model, params, rollout_ms) -> dict:
@@ -1320,7 +1573,20 @@ def rollout_parting_phase(dev, card) -> dict:
 # each replayed graph read from the graph itself; "bookkept", what
 # ``StepGraphs`` added to the wrappers' counters for the same replays
 REPLAYED = {"ran": Counter(), "bookkept": Counter()}
-COUNTER_NAMES = ("fused_dlstm_step", "directional_grid", "directional_grid_bf16")
+COUNTER_NAMES = ("fused_dlstm_step", "directional_grid", "directional_grid_bf16",
+                 *TRAIN_KERNELS)
+
+
+def fused_train_launches(steps: int, rollouts: int, losses=None) -> dict:
+    """The fused train route's launches over ``rollouts`` train steps (a
+    teacher-forced rollout under autograd, its loss and their backward) of
+    ``steps`` rollout steps in all: each per-step kernel once a step,
+    ``fused_train_in_backward`` once a rollout, the loss's two kernels
+    once for each of ``losses`` fused losses (by default one a rollout; a
+    caller with its own loss, as ``tools.profile_train``, none)."""
+    losses = rollouts if losses is None else losses
+    return {**dict.fromkeys(TRAIN_KERNELS[:3], steps), TRAIN_KERNELS[3]: rollouts,
+            **dict.fromkeys(TRAIN_KERNELS[4:], losses)}
 
 
 def graph_kernel_nodes(dot: str) -> Counter:
@@ -1328,7 +1594,8 @@ def graph_kernel_nodes(dot: str) -> Counter:
     (``CUDAGraph.debug_dump``), by launch counter: each node is defined at
     the start of a line, ``"id"[...]``, up to the next one, and a kernel
     node's label names its function; the grid stage's bf16 instantiation
-    names ``__nv_bfloat16``."""
+    names ``__nv_bfloat16``; the fused train route's kernels are named
+    after their wrappers (``TRAIN_KERNELS``, ``<name>_kernel``)."""
     nodes = Counter()
     starts = list(re.finditer(r'(?m)^\s*"[^"]+"\s*\[', dot))
     for start, end in zip(starts, starts[1:] + [None]):
@@ -1337,6 +1604,8 @@ def graph_kernel_nodes(dot: str) -> Counter:
             nodes["fused_dlstm_step"] += 1
         elif "directional_grid_kernel" in label:
             nodes["directional_grid_bf16" if "bfloat16" in label else "directional_grid"] += 1
+        else:
+            nodes.update(name for name in TRAIN_KERNELS if f"{name}_kernel" in label)
     return nodes
 
 
@@ -1391,17 +1660,19 @@ def install_graph_counting():
 
 class Launches:
     """The launches of the port's kernels (the fused step, the grid stage
-    and its bf16 instantiation), zeroed just before a run and read just
-    after it, with a running total by kernel of the runs read into it: the
-    wrappers' counters, where CUDA graph replays launched a kernel the
-    kernel nodes they ran (``install_graph_counting``)."""
+    and its bf16 instantiation, the fused train route's four), zeroed just
+    before a run and read just after it, with a running total by kernel of
+    the runs read into it: the wrappers' counters, where CUDA graph replays
+    launched a kernel the kernel nodes they ran (``install_graph_counting``)."""
 
     def __init__(self):
-        from trajnetplusplusbaselines_torch.ops.cuda import fused_step
+        from trajnetplusplusbaselines_torch.ops.cuda import fused_step, fused_train
 
         self.kernels = (("fused_dlstm_step", fused_step.fused_dlstm_step, "launches"),
                         ("directional_grid", fused_step.directional_grid, "launches"),
-                        ("directional_grid_bf16", fused_step.directional_grid, "bf16_launches"))
+                        ("directional_grid_bf16", fused_step.directional_grid, "bf16_launches"),
+                        *((name, getattr(fused_train, name), "launches")
+                          for name in TRAIN_KERNELS))
         self.totals = {name: 0 for name, _, _ in self.kernels}
 
     def zero(self):
@@ -2047,7 +2318,8 @@ def training_options_phase(dev, rng, card) -> dict:
                 raise AssertionError(f"--obs_dropout logged {start_lengths} for {hb} batches")
             launches["obs_dropout"] = counters.read(
                 {"directional_grid": sum(19 - sl for sl in start_lengths),
-                 "fused_dlstm_step": 2 * 19 * vb})
+                 "fused_dlstm_step": 2 * 19 * vb,
+                 **fused_train_launches(sum(19 - sl for sl in start_lengths), hb)})
             if not np.isfinite([r["loss"] for r in records["train-epoch"]]).all():
                 raise AssertionError(f"--obs_dropout logged {records['train-epoch']}")
             figures["obs_dropout"] = {"start_lengths": start_lengths,
@@ -2145,21 +2417,24 @@ def training_options_phase(dev, rng, card) -> dict:
         rows = {}
         for remat in (False, True):
             model.remat = remat
-            tr = train_cli.Trainer(model, ensemble.tree_map(lambda x: x.clone(), params),
-                                   step_lr(1e-3, 10))
-            tr.loss_and_grads(*batch)  # warm
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            base = torch.cuda.memory_allocated()
-            counters.zero()
-            result = tr.loss_and_grads(*batch)
-            grid = counters.read({"directional_grid": (38 if remat else 19)
-                                  if name == "directional" else 0}, add=False)
-            peak = torch.cuda.max_memory_allocated() - base
-            rows[remat] = {"result": result, "peak_bytes": peak,
-                           "grid_launches": grid["directional_grid"],
-                           "ms": time_ms(lambda: tr.loss_and_grads(*batch), reps=REMAT_REPS,
-                                         warmup=1)}
+            # remat checkpoints the grid route's steps, so the run without it
+            # takes that route too, not the fused train route
+            with mock.patch.object(model, "takes_fused_train", lambda *args, **kw: False):
+                tr = train_cli.Trainer(model, ensemble.tree_map(lambda x: x.clone(), params),
+                                       step_lr(1e-3, 10))
+                tr.loss_and_grads(*batch)  # warm
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                counters.zero()
+                result = tr.loss_and_grads(*batch)
+                grid = counters.read({"directional_grid": (38 if remat else 19)
+                                      if name == "directional" else 0}, add=False)
+                peak = torch.cuda.max_memory_allocated() - base
+                rows[remat] = {"result": result, "peak_bytes": peak,
+                               "grid_launches": grid["directional_grid"],
+                               "ms": time_ms(lambda: tr.loss_and_grads(*batch), reps=REMAT_REPS,
+                                             warmup=1)}
         (loss0, grads0), (loss1, grads1) = rows[False]["result"], rows[True]["result"]
         err = max([abs(float(loss1) - float(loss0)) / abs(float(loss0))]
                   + [float((g1 - g0).abs().max()) / max(float(g0.abs().max()), 1e-30)
@@ -2596,7 +2871,8 @@ def parallel_phase(dev, rng, card, p6_predictor) -> dict:
             train_batches, val_batches = map(batches_per_epoch, (train_res, val_res))
             n_train = len(train_ds)
             counters.read({"directional_grid": 19 * train_batches,
-                           "fused_dlstm_step": 2 * 19 * val_batches})
+                           "fused_dlstm_step": 2 * 19 * val_batches,
+                           **fused_train_launches(19 * train_batches, train_batches)})
             one_ms = time_ms(lambda: one.train_step(*batch), reps=PARALLEL_TIMED_REPS, warmup=2)
             want_grads, want_loss = first_step_grads(None, dev)
             figures = {}
@@ -2766,7 +3042,8 @@ def parallel_phase(dev, rng, card, p6_predictor) -> dict:
             counters.zero()
             trace = profile_train.main(["--device", DEVICE, "--steps", "2",
                                         "--trace_dir", "profile_trace"])
-            profile_launches = counters.read({"directional_grid": 19 * 3})
+            profile_launches = counters.read({"directional_grid": 19 * 3,
+                                              **fused_train_launches(19 * 3, 3, losses=0)})
             with open(trace) as f:
                 events = json.load(f)["traceEvents"]
             kernel_events = sum(GRID_KERNEL in e.get("name", "") for e in events)
@@ -3044,6 +3321,10 @@ def main() -> int:
     # ---- 6b: the train step as CUDA graphs against eager steps
     graph = graph_phase(dev, np.random.default_rng(13), card)
 
+    # ---- 6c: the fused train route: its kernels, its gradients against the
+    # grid route's, its launches a step, its train step against the grid route's
+    fused_train = fused_train_phase(dev, np.random.default_rng(14), card)
+
     # ---- 7: pools: every interaction module, rolled out, trained and served
     pools = pools_phase(dev, rng)
 
@@ -3147,6 +3428,7 @@ def main() -> int:
                                kernel="directional_grid_kernel"))
 
     say("seconds", script=time.perf_counter() - started, graphs=graph["figures"]["seconds"],
+        fused_train=fused_train["figures"]["seconds"],
         classical=classical["seconds"],
         training_options=phase10_s, parallel=parallel["seconds"], card=card)
     main_s, main_a = ROLLOUTS[0]
@@ -3154,11 +3436,11 @@ def main() -> int:
     train_grid = device["grid"][(TRAIN_BATCH, 8)]
     csrc = "trajnetplusplusbaselines_torch/csrc/"
     runs = {"serve": main_launches, "train": train["launches"], "graphs": graph["launches"],
-            "pools": pools["launches"],
+            "fused_train": fused_train["launches"], "pools": pools["launches"],
             "generative": generative["launches"], **options["launches"],
             "parallel_rank0": parallel["launches"], "parallel": parallel["totals"]}
     by_path = {name: {run: counts.get(name, 0) for run, counts in runs.items()}
-               for name in ("fused_dlstm_step", "directional_grid", "directional_grid_bf16")}
+               for name in COUNTER_NAMES}
     bf16_row = bf16_grid["rows"][(TRAIN_BATCH, 8)]
     print(json.dumps({"kernels": [{
         "name": "fused_dlstm_step",
@@ -3217,7 +3499,21 @@ def main() -> int:
         "per_call_ms": bf16_grid["per_call_ms"],
         "library_ms": None,
         "shapes": {f"{s}x{a}": row for (s, a), row in bf16_grid["rows"].items()},
-    }]}), flush=True)
+    }, *({
+        # the fused train route's kernels: the elementwise work of the
+        # flagship's rollout under autograd, times at the train step's 64 rows
+        "name": name,
+        "route": "cuda",
+        "source": csrc + "fused_train.cu",
+        "replaces": "none: no pallas_call; the step's elementwise ops of "
+                    "trajnetplusplusbaselines_tpu/models/lstm.py:114 under jax.grad, which XLA "
+                    "fuses",
+        "launches": sum(by_path[name].values()),
+        "launches_by_path": by_path[name],
+        **{key: row[key] for key in ("max_abs_err", "max_rel_err", "ms", "device_ms",
+                                     "plain_ms", "bound_ms", "bound_by", "bound_share",
+                                     "library_ms", "rows", "bytes")},
+    } for name, row in fused_train["figures"]["kernels"].items())]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

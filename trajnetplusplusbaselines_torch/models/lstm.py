@@ -39,6 +39,17 @@ from whether autograd records) once per rollout, before any launch:
   discriminator's are when it scores the generator's rollout in a generator
   step): the pool and ``lstm_step_plain`` in PyTorch on either device.
 
+Above the step routes, a whole rollout takes ``fused_train`` where
+``LSTM.takes_fused_train`` holds: a teacher-forced ``forward`` that autograd
+records, of a goal-free, ``pool_to_input`` directional grid of the grid
+stage with the ``one_layer`` embedding and no blur or ``pool_size``, not in
+bf16, not under ``remat`` and with its columns not split over a ``--tp``
+mesh (``columns_split``).  There ``ops/cuda/fused_train.FusedTrainRollout``
+computes the rollout with a hand-written backward: per step the grid stage
+(the name this module imports, ``directional_grid``), two products and two
+kernels forward, a kernel and a product backward.  Every other rollout
+steps through ``step`` on its step route.
+
 The route also follows the compute dtype (``with_dtype``): the fused step
 is an f32 kernel, so a model that computes in bf16 takes ``"grid"`` for
 its directional grid, whose grid stage then runs in bf16 (the grid stage
@@ -88,6 +99,7 @@ from ..ops.cuda.fused_step import (
     lstm_weights,
     weights_from_params,
 )
+from ..ops.cuda.fused_train import fused_train_rollout
 from ..ops.embeddings import init_hidden2normal, init_input_embedding, input_embedding
 from ..ops.pooling.grid import GridBasedPooling
 from ..utils.convert import params_to
@@ -109,6 +121,9 @@ def _leaves(tree) -> List[torch.Tensor]:
 
 class LSTM:
     """Static model configuration; parameters live in a dict."""
+
+    # set by a trainer whose --tp mesh splits the params' columns over its ranks
+    columns_split = False
 
     def __init__(
         self,
@@ -170,6 +185,30 @@ class LSTM:
         if self.fused and not records and dtype != torch.bfloat16:
             return "fused"
         return "grid" if self.grid_stage and not positions_record else "plain"
+
+    @property
+    def fused_train(self) -> bool:
+        """True when ``FusedTrainRollout`` computes this model's rollout
+        under autograd: a goal-free, ``pool_to_input`` directional grid of
+        the grid stage with the ``one_layer`` embedding and no blur or
+        ``pool_size``, not under ``remat``, its columns not split over a
+        ``--tp`` mesh (``columns_split``)."""
+        pool = self.pool
+        return (self.grid_stage and pool.embedding_arch == "one_layer"
+                and pool.blur_size == 1 and pool.pool_size == 1 and not self.goal_flag
+                and self.pool_to_input and not self.remat and not self.columns_split)
+
+    def takes_fused_train(self, records: bool, teacher: bool, positions_record: bool = False,
+                          dtype: torch.dtype = torch.float32) -> bool:
+        """The routing predicate of a whole rollout, beside ``route``: True
+        where ``forward`` runs ``FusedTrainRollout``, a ``fused_train``
+        model (above) whose rollout autograd records on the params
+        (``records``), teacher-forced (``teacher``), with positions that
+        carry no gradient (``positions_record``), not in bf16 (``dtype``:
+        float32 on the card, whose kernels are f32; any float dtype on the
+        CPU).  Elsewhere each step takes ``route``'s route."""
+        return (records and teacher and not positions_record and dtype != torch.bfloat16
+                and self.fused_train)
 
     @staticmethod
     def step_weights(params: Dict, cell: str, route: str):
@@ -422,6 +461,13 @@ class LSTM:
         """
         x = self.inputs(params, observed, observed_mask, prediction_truth, prediction_truth_mask,
                         n_predict, goals=goals, slot_mask=slot_mask)
+        if self.takes_fused_train(autograd_records(*_leaves(params)), x.truth is not None,
+                                  autograd_records(x.observed, x.truth),
+                                  params["encoder"]["w_ih"].dtype):
+            args = self.pool.grid_stage_args
+            return fused_train_rollout(
+                params, x.observed, x.observed_mask, x.truth, x.truth_mask,
+                lambda *frames: directional_grid(*frames, **args))
         route, weights = self.plan(params, ("encoder", "decoder"))
         carry, enc_normals, enc_masks, enc_positions = self.encode(
             params, self.init_carry(*x.observed.shape[1:3], device=x.observed.device,

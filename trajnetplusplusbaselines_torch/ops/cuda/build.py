@@ -43,6 +43,12 @@ _SIGNATURES = {
     "dlstm_directional_grid_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _F, _P],
     "dlstm_fused_step": [_P] * 17 + [_I, _I, _F, _F, _P],
     "dlstm_kernel_dims": [_P],
+    "dlstm_train_in": [_P] * 11 + [_I] * 4 + [_P],
+    "dlstm_train_cell": [_P] * 16 + [_I] * 4 + [_P],
+    "dlstm_train_cell_backward": [_P] * 13 + [_I] * 2 + [_P],
+    "dlstm_train_in_backward": [_P] * 2 + [_I] * 3 + [_P],
+    "dlstm_train_loss": [_P] * 6 + [_I] * 4 + [_P],
+    "dlstm_train_loss_backward": [_P] * 4 + [_I] * 4 + [_P],
 }
 
 

@@ -1,8 +1,10 @@
 """A trainer's step as CUDA graphs, one per batch shape.
 
 Port-only: the JAX package compiles its step with ``jit``, while PyTorch's
-eager step pays the host once per op (~2,400 ops in a flagship D-LSTM step
-at batch 8, each ~20-40 us of host time against ~2 us of device time).
+eager step pays the host once per op (~280 kernels in a flagship D-LSTM
+step at batch 8 on the fused train route, ``ops/cuda/fused_train.py``, and
+~2,400 on the grid route, each ~20-40 us of host time against ~2 us of
+device time).
 ``StepGraphs`` follows the "whole network capture" pattern of PyTorch's
 CUDA graphs notes:
 
@@ -48,14 +50,15 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 from torch.autograd.graph import increment_version
 
-from ..ops.cuda import fused_step
+from ..ops.cuda import fused_step, fused_train
 
 WARM_CALLS = 3  # eager calls of a key before its capture
 
 # the launch counters of the port's kernels: (wrapper, attribute)
 COUNTERS = ((fused_step.fused_dlstm_step, "launches"),
             (fused_step.directional_grid, "launches"),
-            (fused_step.directional_grid, "bf16_launches"))
+            (fused_step.directional_grid, "bf16_launches"),
+            *((kernel, "launches") for kernel in fused_train.KERNELS))
 
 
 def takes_graphs(device: torch.device, mesh) -> bool:
