@@ -58,7 +58,10 @@ PyTorch built for CUDA (no jax needed).  Phases, one line each:
    batch, and so does each per-step kernel of the fused train route (6c;
    ``fused_train_in_backward`` and the loss's two kernels once), the fused
    step 2 x 19 times per val batch (validation records no
-   autograd, so its teacher-forced pass and its free rollout both run it).
+   autograd, so its teacher-forced pass and its free rollout both run it),
+   and the loss kernel twice per val batch (every ``pred``-criterion loss of
+   ``trainers/lstm.Trainer`` in f32 on the card is the loss kernel's,
+   whichever route made the rollout, in every phase below too).
    Every logged loss is finite, epoch 2's train loss is below epoch 1's, and
    the written pickle serves the test part through ``lstm_cli``.  One train
    step's loss and gradients with the grid kernel against the plain grid
@@ -97,7 +100,9 @@ PyTorch built for CUDA (no jax needed).  Phases, one line each:
    ``train_step``'s launches, eager and replayed: 19 grid, 19 of each
    per-step kernel, one ``fused_train_in_backward`` and one of each loss
    kernel; (d) ``train_step`` at batch 8 on graphs, this route against the
-   grid route in turns: ms a step, device events and device time a step;
+   grid route in turns: ms a step, device events and device time a step.
+   In (b) and (d) the grid route's step is the parent's: the grid route
+   and ``losses.prediction_loss`` (``plain_prediction_loss``);
 7. pools (the main path's other interaction modules), at the trainer's
    default widths (hidden 128, embedding 64, pool 256, n 12, cell 0.6 m,
    latent 16, neigh 4, mp_iters 5):
@@ -228,6 +233,7 @@ phase 9's folded KF fit and SF bucket, written into OUT_DIR.
 """
 
 import argparse
+import contextlib
 import json
 import logging
 import math
@@ -847,7 +853,8 @@ def train_phase(dev, rng) -> dict:
                     "directional_grid": 19 * train_batches * TRAIN_EPOCHS,
                     "directional_grid_bf16": 0,
                     **fused_train_launches(19 * train_batches * TRAIN_EPOCHS,
-                                           train_batches * TRAIN_EPOCHS)}
+                                           train_batches * TRAIN_EPOCHS,
+                                           val_losses=2 * val_batches * TRAIN_EPOCHS)}
             if train_launches != want:
                 raise AssertionError(f"training launched {train_launches}, expected {want}")
             out = f"OUTPUT_BLOCK/synth_train/{name}.pkl"
@@ -1021,7 +1028,7 @@ def graph_phase(dev, rng, card) -> dict:
                                "moments": moments, "losses": torch.from_numpy(
                                    trainer.epoch_losses.copy()), "ms": ms})
         steps = epochs * len(trainer.epoch_losses) - (kind == "left_out")
-        want = ({"directional_grid": 38 * steps} if remat else
+        want = ({"directional_grid": 38 * steps, **loss_launches(steps)} if remat else
                 {"directional_grid": 19 * steps, **fused_train_launches(19 * steps, steps)})
         launches = counters.read(want, add=kind == "graphs")
         captured = 0 if trainer.graphs is None else len(trainer.graphs.graphs)
@@ -1232,8 +1239,16 @@ def fused_train_phase(dev, rng, card) -> dict:
 
     # (b) the route against the grid route on one batch
     batch = train_inputs(rng, TRAIN_BATCH, 8, dev)
-    def no_fused_train(*args, **kw):
-        return False
+
+    def grid_route(run_model):
+        """The parent's train step: the grid route and the plain loss."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(mock.patch.object(run_model, "takes_fused_train",
+                                              lambda *args, **kw: False))
+        stack.enter_context(mock.patch.object(fused_train, "prediction_loss",
+                                              plain_prediction_loss))
+        return stack
+
     route_errs = {}
     # the collision term at 3 m, so that most pairs collide and pred's
     # gradient reaches the rollout
@@ -1246,7 +1261,7 @@ def fused_train_phase(dev, rng, card) -> dict:
         counters.zero()
         fused = trainer.loss_and_grads(*batch, **call)
         counters.read({"directional_grid": steps, **fused_train_launches(steps, 1)}, add=False)
-        with mock.patch.object(model, "takes_fused_train", no_fused_train):
+        with grid_route(model):
             counters.zero()
             plain = trainer.loss_and_grads(*batch, **call)
             counters.read({"directional_grid": steps}, add=False)
@@ -1284,8 +1299,8 @@ def fused_train_phase(dev, rng, card) -> dict:
 
     # (d) train steps on graphs, the fused train route against the grid route
     grid_model = flagship_model()
-    grid_model.takes_fused_train = no_fused_train
-    slow = graph_trainer(grid_model)
+    with grid_route(grid_model):  # captured there, then replayed
+        slow = graph_trainer(grid_model)
     timed = {"fused_train": [], "grid": []}
     for label, trainer in (("fused_train", fast), ("grid", slow), ("grid", slow),
                            ("fused_train", fast)):
@@ -1577,16 +1592,34 @@ COUNTER_NAMES = ("fused_dlstm_step", "directional_grid", "directional_grid_bf16"
                  *TRAIN_KERNELS)
 
 
-def fused_train_launches(steps: int, rollouts: int, losses=None) -> dict:
+def loss_launches(train_losses: int, val_losses: int = 0) -> dict:
+    """The loss kernels' launches of a ``pred``-criterion trainer in f32 on
+    the card, whichever route made its rollouts: ``fused_train_loss`` for
+    each of ``train_losses`` train losses and ``val_losses`` validation
+    losses (two a validation batch), ``fused_train_loss_backward`` for each
+    train loss."""
+    return {TRAIN_KERNELS[4]: train_losses + val_losses, TRAIN_KERNELS[5]: train_losses}
+
+
+def fused_train_launches(steps: int, rollouts: int, losses=None, val_losses: int = 0) -> dict:
     """The fused train route's launches over ``rollouts`` train steps (a
     teacher-forced rollout under autograd, its loss and their backward) of
     ``steps`` rollout steps in all: each per-step kernel once a step,
-    ``fused_train_in_backward`` once a rollout, the loss's two kernels
-    once for each of ``losses`` fused losses (by default one a rollout; a
-    caller with its own loss, as ``tools.profile_train``, none)."""
+    ``fused_train_in_backward`` once a rollout, and ``loss_launches`` of
+    ``losses`` train losses (by default one a rollout; a caller with its
+    own loss, as ``tools.profile_train``, none) and ``val_losses``."""
     losses = rollouts if losses is None else losses
     return {**dict.fromkeys(TRAIN_KERNELS[:3], steps), TRAIN_KERNELS[3]: rollouts,
-            **dict.fromkeys(TRAIN_KERNELS[4:], losses)}
+            **loss_launches(losses, val_losses)}
+
+
+def plain_prediction_loss(rel, targets, scene_mask):
+    """``losses.prediction_loss`` of the primaries' last normals of ``rel``:
+    the trainer's ``pred`` criterion before the loss kernels, the grid
+    route's loss where phase 6c holds the fused train route against it."""
+    from trajnetplusplusbaselines_torch.losses import prediction_loss
+
+    return prediction_loss(rel[-targets.shape[0]:, :, 0], targets, scene_mask)
 
 
 def graph_kernel_nodes(dot: str) -> Counter:
@@ -1876,7 +1909,8 @@ def pools_phase(dev, rng) -> dict:
                 batches = [batches_per_epoch(r) for r in (resident, val_resident)]
                 route = trainer.model.route(records=True)
                 train_launches = read({"fused_dlstm_step": 0, "directional_grid":
-                                       19 * (batches[0] + 2 * batches[1]) * (route == "grid")})
+                                       19 * (batches[0] + 2 * batches[1]) * (route == "grid"),
+                                       **loss_launches(batches[0], 2 * batches[1])})
                 out = f"OUTPUT_BLOCK/synth_pools/{'lstm_goals' if goals else 'lstm'}_{kind}_pools.pkl"
                 with open(out + ".log") as f:
                     records = [json.loads(line) for line in f]
@@ -2265,7 +2299,8 @@ def training_options_phase(dev, rng, card) -> dict:
             (_, resident), (_, val_resident) = trainer._resident.values()
             tb, vb = batches_per_epoch(resident), batches_per_epoch(val_resident)
             launches["bf16_train"] = counters.read(
-                {"directional_grid_bf16": 19 * (tb + 2 * vb) * TRAIN_EPOCHS})
+                {"directional_grid_bf16": 19 * (tb + 2 * vb) * TRAIN_EPOCHS,
+                 **loss_launches(tb * TRAIN_EPOCHS, 2 * vb * TRAIN_EPOCHS)})
             out = f"OUTPUT_BLOCK/{path}/lstm_directional_bf16.pkl"
             records = log_records(out + ".log")
             losses = ([r["loss"] for r in records["train-epoch"]]
@@ -2319,7 +2354,8 @@ def training_options_phase(dev, rng, card) -> dict:
             launches["obs_dropout"] = counters.read(
                 {"directional_grid": sum(19 - sl for sl in start_lengths),
                  "fused_dlstm_step": 2 * 19 * vb,
-                 **fused_train_launches(sum(19 - sl for sl in start_lengths), hb)})
+                 **fused_train_launches(sum(19 - sl for sl in start_lengths), hb,
+                                        val_losses=2 * vb)})
             if not np.isfinite([r["loss"] for r in records["train-epoch"]]).all():
                 raise AssertionError(f"--obs_dropout logged {records['train-epoch']}")
             figures["obs_dropout"] = {"start_lengths": start_lengths,
@@ -2429,7 +2465,8 @@ def training_options_phase(dev, rng, card) -> dict:
                 counters.zero()
                 result = tr.loss_and_grads(*batch)
                 grid = counters.read({"directional_grid": (38 if remat else 19)
-                                      if name == "directional" else 0}, add=False)
+                                      if name == "directional" else 0, **loss_launches(1)},
+                                     add=False)
                 peak = torch.cuda.max_memory_allocated() - base
                 rows[remat] = {"result": result, "peak_bytes": peak,
                                "grid_launches": grid["directional_grid"],
@@ -2872,7 +2909,8 @@ def parallel_phase(dev, rng, card, p6_predictor) -> dict:
             n_train = len(train_ds)
             counters.read({"directional_grid": 19 * train_batches,
                            "fused_dlstm_step": 2 * 19 * val_batches,
-                           **fused_train_launches(19 * train_batches, train_batches)})
+                           **fused_train_launches(19 * train_batches, train_batches,
+                                                  val_losses=2 * val_batches)})
             one_ms = time_ms(lambda: one.train_step(*batch), reps=PARALLEL_TIMED_REPS, warmup=2)
             want_grads, want_loss = first_step_grads(None, dev)
             figures = {}
@@ -2894,7 +2932,9 @@ def parallel_phase(dev, rng, card, p6_predictor) -> dict:
                         raise AssertionError(f"{name} rank {r} ran {got['train_batches']} + "
                                              f"{got['val_batches']} batches")
                     want = {"directional_grid": 19 * train_batches,
-                            "fused_dlstm_step": 2 * 19 * val_batches}
+                            "fused_dlstm_step": 2 * 19 * val_batches,
+                            **fused_train_launches(19 * train_batches, train_batches,
+                                                   val_losses=2 * val_batches)}
                     if {k: got["launches"][k] for k in want} != want:
                         raise AssertionError(f"{name} rank {r} launched {got['launches']}, "
                                              f"expected {want} (19 grid a train step)")

@@ -31,7 +31,7 @@ import torch
 
 import chip_smoke
 from trajnetplusplusbaselines_torch.models import lstm as lstm_module
-from trajnetplusplusbaselines_torch.ops.cuda import fused_step
+from trajnetplusplusbaselines_torch.ops.cuda import fused_step, fused_train
 
 from .torch_parity import (
     TINY_LATENT,
@@ -160,7 +160,9 @@ def test_along_reading_of_the_jax_folded_rollout_is_the_jax_rollout(kind, monkey
 @pytest.fixture
 def rehearsal(monkeypatch):
     """Phases 7 and 8 on the CPU: the wrappers' launches counted where the
-    model calls them, the card's clocks and memory statistics stubbed, the
+    model calls them (the loss kernels' where their wrappers run the plain
+    version, as the card launches them for every f32 ``pred`` loss of the
+    trainer), the card's clocks and memory statistics stubbed, the
     rollouts at ``REHEARSAL_ROLLOUTS`` against ``REHEARSAL_CPU_SCENES``
     CPU scenes."""
     def counted(fn, wrapper):
@@ -173,6 +175,10 @@ def rehearsal(monkeypatch):
                         counted(lstm_module.directional_grid, fused_step.directional_grid))
     monkeypatch.setattr(lstm_module, "fused_dlstm_step",
                         counted(lstm_module.fused_dlstm_step, fused_step.fused_dlstm_step))
+    for name in ("fused_train_loss", "fused_train_loss_backward"):
+        monkeypatch.setattr(fused_train, name + "_plain",
+                            counted(getattr(fused_train, name + "_plain"),
+                                    getattr(fused_train, name)))
     monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
     monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, reps=20, warmup=3: 1.0)
     monkeypatch.setattr(chip_smoke, "kernel_ms_per_launch", lambda fn, reps, kernel: 1e-3)

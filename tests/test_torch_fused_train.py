@@ -198,6 +198,9 @@ ROUTES = [
     ("f32", {}, {"dtype": torch.float32}, True),
     ("front", {"front": True}, {}, True),
     ("bf16", {}, {"dtype": torch.bfloat16}, False),
+    ("f32_on_the_card", {}, {"dtype": torch.float32, "device": "cuda"}, True),
+    ("f64_on_the_card", {}, {"device": "cuda"}, False),
+    ("f16_on_the_card", {}, {"dtype": torch.float16, "device": "cuda"}, False),
     ("free_rollout", {}, {"teacher": False}, False),
     ("no_grad", {}, {"records": False}, False),
     ("positions_carry_a_gradient", {}, {"positions_record": True}, False),
@@ -221,11 +224,10 @@ def test_route_predicate(name, pool_kw, call, want):
     assert model.takes_fused_train(**kw) is want
 
 
-@pytest.mark.parametrize("change", ["goals", "pool_to_input_false", "remat", "columns_split",
-                                    "no_pool"])
+@pytest.mark.parametrize("change", ["goals", "pool_to_input_false", "remat", "no_pool"])
 def test_route_predicate_model_options(change):
-    """Goals, ``pool_to_input=False``, ``remat``, columns split over a
-    ``--tp`` mesh and a pool-less LSTM keep their step routes."""
+    """Goals, ``pool_to_input=False``, ``remat`` and a pool-less LSTM keep
+    their step routes."""
     model = _model()
     if change == "goals":
         model = LSTM(pool=model.pool, embedding_dim=8, hidden_dim=16, goal_flag=True)
@@ -261,21 +263,70 @@ def test_forward_takes_the_route_the_predicate_names(remat):
 def test_trainer_parity_configuration_takes_the_route():
     """The trainer of ``tests/test_torch_train.py`` (directional, n=4,
     embedding 8, hidden 16, pool 16, f64) computes its loss through the
-    Function, so its JAX parity tests hold the route; a ``--tp`` split
-    would not (``columns_split``)."""
+    Function, so its JAX parity tests hold the route."""
     jmodel = JLSTM(pool=JGrid(type_="directional", hidden_dim=16, cell_side=0.6, n=4,
                               out_dim=16), embedding_dim=8, hidden_dim=16)
     model = port_model(jmodel)
     params = params_from_jax(jax.tree.map(
         lambda x: np.asarray(x, np.float64), jmodel.init_params(jax.random.PRNGKey(0))))
     trainer = Trainer(model, params, common.step_lr(1e-3, 10), batch_size=2, augment=False)
-    assert model.columns_split is False
     xy, mask = _batch(s=2, a=3)
     with mock.patch.object(fused_train.FusedTrainRollout, "apply",
                            wraps=fused_train.FusedTrainRollout.apply) as apply:
         loss, grads = trainer.loss_and_grads(xy, mask, torch.ones(2, dtype=torch.bool))
     assert apply.call_count == 1 and torch.isfinite(loss)
     assert all(torch.isfinite(g).all() for g in grads)
+
+
+def _loss_model(name):
+    pool = _model().pool
+    if name == "goals":
+        return LSTM(pool=pool, embedding_dim=8, hidden_dim=16, goal_flag=True)
+    if name == "social":
+        return LSTM(pool=GridBasedPooling(type_="social", hidden_dim=16, cell_side=0.6, n=4,
+                                          out_dim=16), embedding_dim=8, hidden_dim=16)
+    if name == "no_pool":
+        return LSTM(pool=None, embedding_dim=8, hidden_dim=16)
+    model = _model()
+    model.remat = name == "remat"
+    return model.with_dtype(torch.bfloat16 if name == "bf16" else None)
+
+
+def _plain_prediction_loss(rel, targets, scene_mask):
+    return losses.prediction_loss(rel[-targets.shape[0]:, :, 0], targets, scene_mask)
+
+
+@pytest.mark.parametrize("name,criterion,fused_rollout", [
+    ("flagship", "pred", True), ("goals", "pred", False), ("social", "pred", False),
+    ("no_pool", "pred", False), ("remat", "pred", False), ("bf16", "pred", False),
+    ("flagship_l2", "L2", True)])
+def test_trainer_loss_follows_the_criterion_not_the_route(name, criterion, fused_rollout):
+    """The trainer's ``pred`` criterion is ``FusedPredictionLoss`` whichever
+    route made the rollout (its plain version on the CPU), and gives
+    ``losses.prediction_loss``'s loss and gradients: within 1e-12 of each
+    one's largest magnitude in f64, 1e-6 where the rollout computes in bf16
+    (its outputs come back in f32).  ``L2`` keeps its own loss."""
+    model = _loss_model(name.replace("_l2", ""))
+    dtype = torch.float32 if name == "bf16" else torch.float64
+    params = model.init_params(torch.Generator().manual_seed(1), dtype=dtype)
+    trainer = Trainer(model, params, common.step_lr(1e-3, 10), criterion=criterion,
+                      batch_size=4, augment=False)
+    xy, mask = _batch(dtype=dtype)
+    goals = torch.zeros(xy.shape[1:], dtype=dtype)
+    scenes = torch.tensor([True, True, True, False])
+    with mock.patch.object(fused_train.FusedTrainRollout, "apply",
+                           wraps=fused_train.FusedTrainRollout.apply) as rollout, \
+            mock.patch.object(fused_train.FusedPredictionLoss, "apply",
+                              wraps=fused_train.FusedPredictionLoss.apply) as loss_fn:
+        loss, grads = trainer.loss_and_grads(xy, mask, scenes, goals=goals)
+    assert rollout.call_count == int(fused_rollout)
+    assert loss_fn.call_count == int(criterion == "pred")
+    with mock.patch.object(fused_train, "prediction_loss", _plain_prediction_loss):
+        want, want_grads = trainer.loss_and_grads(xy, mask, scenes, goals=goals)
+    tol = 1e-6 if name == "bf16" else OWN_TOL
+    assert _relative(loss, want) <= tol
+    for g, w in zip(grads, want_grads):
+        assert _relative(g, w) <= tol
 
 
 # ------------------------------------------------- the wrappers' launch path

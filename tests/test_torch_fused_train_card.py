@@ -72,7 +72,8 @@ def test_route_matches_the_grid_route_on_the_card():
     loss, grads = trainer.loss_and_grads(xy, mask, scenes)
     torch.cuda.synchronize()
     assert [k.launches - b for k, b in zip(kernels, before)] == [19, 19, 19, 19, 1, 1, 1]
-    with mock.patch.object(model, "takes_fused_train", lambda *a, **k: False):
+    with mock.patch.object(model, "takes_fused_train", lambda *a, **k: False), \
+            mock.patch.object(fused_train, "prediction_loss", chip_smoke.plain_prediction_loss):
         loss_g, grads_g = trainer.loss_and_grads(xy, mask, scenes)
     assert abs(float(loss) - float(loss_g)) <= 1e-5 * max(abs(float(loss_g)), 4.0)
     for g, w in zip(grads, grads_g):

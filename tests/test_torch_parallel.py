@@ -11,7 +11,8 @@ the A=4 bucket's last batch holds 2 + 1 real scenes and the A=8 bucket's
   draws on every rank) where the mesh has one of the two axes, and
   (2, 2), without augmentation, equals JAX's single-device ``Trainer`` at
   1e-8; under tensor parallelism each rank holds the column blocks of the
-  leaves JAX's rule splits, and their Adam moments;
+  leaves JAX's rule splits, and their Adam moments, and its teacher-forced
+  rollouts take the fused train route on the gathered params;
 - the SGAN at (2, 2), the VAE at (2, 1) and the ensemble at dp 2 equal their
   one-process runs at 1e-9;
 - ``make_sharded_train_step``: three steps at tp 1 and 2 equal the
@@ -137,7 +138,7 @@ def test_tensor_parallel_ranks_hold_column_blocks_and_their_moments(runs):
     want_state = tr._full_adam_state(tr.optimizer, tr.paths)
     jm = _jax_mesh(tp=2)
     for rank in range(2):
-        _, _, shapes, state = worker.result(runs[0], "lstm_tp2", rank)
+        _, _, shapes, state, _ = worker.result(runs[0], "lstm_tp2", rank)
         for path, leaf in zip(tr.paths, tr.leaves):
             split = _jax_splits(jm, leaf)
             block = (leaf.shape[0], leaf.shape[1] // 2) if split else tuple(leaf.shape)
@@ -145,6 +146,16 @@ def test_tensor_parallel_ranks_hold_column_blocks_and_their_moments(runs):
             for k in ("exp_avg", "exp_avg_sq"):
                 np.testing.assert_allclose(state[path][k], want_state[path][k], atol=TOL, rtol=0)
     assert sum(_jax_splits(jm, leaf) for leaf in tr.leaves) >= 5  # gates and pool embedding
+
+
+def test_tensor_parallel_ranks_take_the_fused_train_route(runs):
+    """At (1, 2) the trainer gathers the full params before ``forward``, so
+    each rank's teacher-forced rollouts take the fused train route, one a
+    train step, as one process's do; ``test_lstm_epochs_match_one_process``
+    holds their result to one process's."""
+    _, losses, _, _, rollouts = worker.result(runs[0], "lstm_tp2", 0)
+    assert rollouts == sum(len(epoch) for epoch in losses) > 0
+    assert worker.result(runs[0], "lstm_tp2", 1)[4] == rollouts
 
 
 @pytest.mark.parametrize("case,kind,world", [("sgan_dp2tp2", "sgan", 4), ("vae_dp2", "vae", 2)])

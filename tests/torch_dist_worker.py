@@ -240,14 +240,21 @@ def case_lstm_dp2(outdir):
 
 def case_lstm_tp2(outdir):
     """Two epochs at (1, 2) with a clip that bites; each rank's block and
-    Adam moment shapes."""
+    Adam moment shapes; the rollouts the fused train route computed."""
+    from unittest import mock
+
+    from trajnetplusplusbaselines_torch.ops.cuda import fused_train
+
     tr = trainer("lstm", _inputs(outdir)["lstm"], _mesh(1, 2), clip_grad=0.05)
-    params, losses = train_epochs(tr)
+    with mock.patch.object(fused_train.FusedTrainRollout, "apply",
+                           wraps=fused_train.FusedTrainRollout.apply) as rollout:
+        params, losses = train_epochs(tr)
     moments = tr.optimizer.state_dict()["state"]
     shapes = {p: (tuple(leaf.shape), tuple(moments[i]["exp_avg"].shape),
                   tuple(moments[i]["exp_avg_sq"].shape))
               for i, (p, leaf) in enumerate(zip(tr.paths, tr.leaves))}
-    return params, losses, shapes, tr._full_adam_state(tr.optimizer, tr.paths)
+    return (params, losses, shapes, tr._full_adam_state(tr.optimizer, tr.paths),
+            rollout.call_count)
 
 
 def case_lstm_dp2tp2(outdir):

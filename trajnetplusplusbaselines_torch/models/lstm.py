@@ -43,8 +43,9 @@ Above the step routes, a whole rollout takes ``fused_train`` where
 ``LSTM.takes_fused_train`` holds: a teacher-forced ``forward`` that autograd
 records, of a goal-free, ``pool_to_input`` directional grid of the grid
 stage with the ``one_layer`` embedding and no blur or ``pool_size``, not in
-bf16, not under ``remat`` and with its columns not split over a ``--tp``
-mesh (``columns_split``).  There ``ops/cuda/fused_train.FusedTrainRollout``
+bf16 (on the card only in f32, the kernels' dtype) and not under ``remat``.
+A ``--tp`` trainer gathers the full params before ``forward``, so it takes
+the route as one process does.  There ``ops/cuda/fused_train.FusedTrainRollout``
 computes the rollout with a hand-written backward: per step the grid stage
 (the name this module imports, ``directional_grid``), two products and two
 kernels forward, a kernel and a product backward.  Every other rollout
@@ -122,9 +123,6 @@ def _leaves(tree) -> List[torch.Tensor]:
 class LSTM:
     """Static model configuration; parameters live in a dict."""
 
-    # set by a trainer whose --tp mesh splits the params' columns over its ranks
-    columns_split = False
-
     def __init__(
         self,
         embedding_dim: int = 64,
@@ -191,24 +189,25 @@ class LSTM:
         """True when ``FusedTrainRollout`` computes this model's rollout
         under autograd: a goal-free, ``pool_to_input`` directional grid of
         the grid stage with the ``one_layer`` embedding and no blur or
-        ``pool_size``, not under ``remat``, its columns not split over a
-        ``--tp`` mesh (``columns_split``)."""
+        ``pool_size``, not under ``remat``."""
         pool = self.pool
         return (self.grid_stage and pool.embedding_arch == "one_layer"
                 and pool.blur_size == 1 and pool.pool_size == 1 and not self.goal_flag
-                and self.pool_to_input and not self.remat and not self.columns_split)
+                and self.pool_to_input and not self.remat)
 
     def takes_fused_train(self, records: bool, teacher: bool, positions_record: bool = False,
-                          dtype: torch.dtype = torch.float32) -> bool:
+                          dtype: torch.dtype = torch.float32, device="cpu") -> bool:
         """The routing predicate of a whole rollout, beside ``route``: True
         where ``forward`` runs ``FusedTrainRollout``, a ``fused_train``
         model (above) whose rollout autograd records on the params
         (``records``), teacher-forced (``teacher``), with positions that
-        carry no gradient (``positions_record``), not in bf16 (``dtype``:
-        float32 on the card, whose kernels are f32; any float dtype on the
-        CPU).  Elsewhere each step takes ``route``'s route."""
-        return (records and teacher and not positions_record and dtype != torch.bfloat16
-                and self.fused_train)
+        carry no gradient (``positions_record``), in the params' ``dtype``
+        on their ``device``: float32 on the card, whose kernels are f32; on
+        the CPU any float dtype but bf16, which takes ``route``'s bf16 grid
+        stage as on the card.  Elsewhere each step takes ``route``'s route."""
+        on_card = torch.device(device).type == "cuda"
+        return (records and teacher and not positions_record and self.fused_train
+                and (dtype == torch.float32 if on_card else dtype != torch.bfloat16))
 
     @staticmethod
     def step_weights(params: Dict, cell: str, route: str):
@@ -461,9 +460,10 @@ class LSTM:
         """
         x = self.inputs(params, observed, observed_mask, prediction_truth, prediction_truth_mask,
                         n_predict, goals=goals, slot_mask=slot_mask)
+        w_ih = params["encoder"]["w_ih"]
         if self.takes_fused_train(autograd_records(*_leaves(params)), x.truth is not None,
-                                  autograd_records(x.observed, x.truth),
-                                  params["encoder"]["w_ih"].dtype):
+                                  autograd_records(x.observed, x.truth), w_ih.dtype,
+                                  w_ih.device):
             args = self.pool.grid_stage_args
             return fused_train_rollout(
                 params, x.observed, x.observed_mask, x.truth, x.truth_mask,

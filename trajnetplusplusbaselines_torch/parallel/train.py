@@ -81,8 +81,6 @@ def make_sharded_train_step(model, optimizer: Callable, mesh: Optional[Mesh],
         if mesh is not None:
             shardings.update(param_shardings(mesh, params))
             params = shard_params(mesh, params)
-            # the fused train route takes whole columns (``LSTM.takes_fused_train``)
-            model.columns_split = any(sh.split for sh in shardings.values())
         return tree_map_with_path(lambda _, leaf: torch.as_tensor(leaf).detach().clone()
                                   .requires_grad_(), params)
 

@@ -85,7 +85,6 @@ from ..data.load import prepare_data
 from ..losses import collision_loss, l2_loss, prediction_loss
 from ..models.lstm import LSTM, LSTMPredictor
 from ..ops.cuda import fused_train
-from ..ops.cuda.fused_step import autograd_records
 from ..ops.pooling import POOL_TYPES, make_pool
 from ..parallel.mesh import make_mesh
 from ..parallel.multihost import init_from_env, process_info
@@ -137,8 +136,6 @@ class Trainer(EpochLoop):
         self.params = self.attach_mesh(mesh, params, batch_size)
         self.paths, self.leaves = zip(*param_items(self.params))
         self.split = self._split(self.paths)
-        # the fused train route takes whole columns (``LSTM.takes_fused_train``)
-        model.columns_split = any(self.split)
         for leaf in self.leaves:
             leaf.requires_grad_()
         self.device = self.leaves[0].device
@@ -179,14 +176,15 @@ class Trainer(EpochLoop):
     # ------------------------------------------------------------------ step
     def _loss_from_outputs(self, rel, pred, valid, xy, mask, scene_mask):
         """Primary-only criterion (+ optional collision term), x batch size;
-        the ``pred`` criterion as ``fused_train.prediction_loss`` where the
-        rollout took the fused train route (``trains_fused``)."""
+        the ``pred`` criterion as ``fused_train.prediction_loss`` wherever
+        its kernel takes ``rel`` (f32 on the card; on the CPU its plain
+        version, any dtype), whichever route made ``rel``."""
         targets = (xy[self.obs_length:self.seq_length, :, 0]
                    - xy[self.obs_length - 1:self.seq_length - 1, :, 0])  # [pred, S, 2]
         primary_rel = rel[-self.pred_length:, :, 0]  # [pred, S, 5]
         if self.criterion == "L2":
             loss = l2_loss(primary_rel, targets, scene_mask)
-        elif self.trains_fused():
+        elif rel.device.type == "cpu" or rel.dtype == torch.float32:
             loss = fused_train.prediction_loss(rel, targets, scene_mask)
         else:
             loss = prediction_loss(primary_rel, targets, scene_mask)
@@ -233,15 +231,6 @@ class Trainer(EpochLoop):
         loss = self._loss_from_outputs(rel, pred, valid, xy, mask, scene_mask)
         grads = torch.autograd.grad(loss, self.leaves, materialize_grads=True)
         return loss.detach(), self._summed(grads)
-
-    def trains_fused(self) -> bool:
-        """Whether a teacher-forced forward takes the model's fused train
-        route (``LSTM.takes_fused_train``, the predicate ``forward`` reads):
-        where autograd records on the leaves; there the loss is the fused
-        one too."""
-        return self.model.takes_fused_train(
-            autograd_records(*self.leaves), True,
-            dtype=self.compute_dtype or self.leaves[0].dtype)
 
     def train_step(self, xy, mask, scene_mask, goals=None, slot_mask=None, start_length=None):
         """One optimizer step on one batch (a ``common.Batch``'s fields);
