@@ -56,7 +56,9 @@ PyTorch built for CUDA (no jax needed).  Phases, one line each:
    the flagship D-LSTM for 2 epochs at batch 8; the counters are zeroed just
    before and read just after: the grid kernel launches 19 times per train
    batch, and so does each per-step kernel of the fused train route (6c;
-   ``fused_train_in_backward`` and the loss's two kernels once), the fused
+   ``fused_train_in`` 12 times: once for the encoder's 8 steps, once a
+   decoder step; ``fused_train_in_backward`` and the loss's two kernels
+   once), the fused
    step 2 x 19 times per val batch (validation records no
    autograd, so its teacher-forced pass and its free rollout both run it),
    and the loss kernel twice per val batch (every ``pred``-criterion loss of
@@ -93,14 +95,19 @@ PyTorch built for CUDA (no jax needed).  Phases, one line each:
    (a) their six kernels against their plain versions at 64 and 8,192 rows
    (1e-6 of each output's largest magnitude, masks equal), each one's time
    a call and a launch at 64 rows, its bound (the bytes) and its plain
-   version's time; (b) the route's loss and every leaf's gradient against
+   version's time; ``fused_train_in`` at 64, 512 (the encoder's 8 steps)
+   and 8,192 rows on grids with 0, 14, 62 (A = 32) and 288 entries a row
+   not zero, -0.0 in others, its time a launch beside its bound at each,
+   at each split of its pool columns, and ``torch.addmm``'s for the grid
+   embedding's product alone; (b) the route's loss and every leaf's gradient against
    the grid route's on one batch (defaults, a collision term,
    ``start_length`` 3), 1e-5 of each leaf's largest (the loss: of its own
    magnitude or the batch size), each run's launches read exactly; (c) one
-   ``train_step``'s launches, eager and replayed: 19 grid, 19 of each
-   per-step kernel, one ``fused_train_in_backward`` and one of each loss
-   kernel; (d) ``train_step`` at batch 8 on graphs, this route against the
-   grid route in turns: ms a step, device events and device time a step.
+   ``train_step``'s launches, eager and replayed: 19 grid, 12
+   ``fused_train_in``, 19 ``fused_train_cell`` and 19 of its backward, one
+   ``fused_train_in_backward`` and one of each loss kernel; (d)
+   ``train_step`` at batch 8 on graphs, this route against the grid route
+   in turns: ms a step, device events and device time a step.
    In (b) and (d) the grid route's step is the parent's: the grid route
    and ``losses.prediction_loss`` (``plain_prediction_loss``);
 7. pools (the main path's other interaction modules), at the trainer's
@@ -252,7 +259,8 @@ from unittest import mock
 import numpy as np
 import torch
 
-from roofline import FLOP_PER_ROW, PEAK_BYTES, card_line, grid_bound_ms, step_bound
+from roofline import (FLOP_PER_ROW, PEAK_BYTES, PEAK_F32, card_line, grid_bound_ms,
+                      step_bound)
 
 REPO = Path(__file__).resolve().parent
 DEVICE = "cuda"
@@ -275,6 +283,7 @@ POSITION_ATOL = 1e-3
 ALONG_ATOL = 4e-5
 PARTING_SEEDS = range(5)  # phase 4c: the bench's rollout cell at these seeds
 TRAIN_BATCH, TRAIN_EPOCHS = 8, 2  # the trainer's default batch
+OBS_LENGTH, PRED_LENGTH = 9, 12  # the flagship's observed and predicted frames
 TRAIN_TIMED = ((TRAIN_BATCH, 8), (256, 8))  # (scenes, agents) of the timed train steps
 # phase 4b's grid stage shapes: a train step, the CLI's batch, two of 8,192
 # rows (the 9.4 MB written stays in the 50 MB L2) and one past the L2
@@ -354,8 +363,15 @@ GRAPH_LEFT_OUT = 2  # the control's step left out, counted from 1
 TRAIN_KERNELS = ("fused_train_in", "fused_train_cell", "fused_train_cell_backward",
                  "fused_train_in_backward", "fused_train_loss", "fused_train_loss_backward")
 TRAIN_KERNEL_SHAPES = ((TRAIN_BATCH, 8), (1024, 8))
+# fused_train_in against its plain version at (steps, rows): a decoder
+# step, the encoder's 8 steps in one launch, 8,192 rows; on grids of
+# (agents, non-zero entries a row): none, the train batch's 2 (A - 1) at A
+# = 8 and at A = 32, every entry (-0.0 in some of the zero slots)
+TRAIN_IN_SHAPES = ((1, 8 * TRAIN_BATCH), (8, 8 * 8 * TRAIN_BATCH), (1, 8192))
+TRAIN_IN_GRIDS = ((8, 0), (8, 14), (32, 62), (8, 288))
 TRAIN_KERNEL_RTOL = 1e-6
 TRAIN_KERNEL_REPS = 50  # launches per timed or profiled window
+LOST_WINDOWS = 4  # traces of a profiled window that holds no device event
 # the route's loss and each leaf's gradient against the grid route's on one
 # batch, of the leaf's largest magnitude: two f32 orders of the same sums
 FUSED_TRAIN_RTOL = 1e-5
@@ -684,19 +700,36 @@ def profiled(fn, reps, table_path, kernel="fused_step_kernel"):
     op tables (by device time, and by host time beside it) to
     ``table_path`` (unless None) and return the window's device time, the
     named kernel's part of it and its launches, the device events per rep,
-    the wall time and the device's busy share."""
+    the wall time and the device's busy share.  The profiler traces a
+    warm-up cycle of ``reps`` calls first and keeps only the second cycle:
+    of 124 windows of 50 ``fused_train_in`` launches on an H100 traced from
+    the profiler's start, 74 held all 50 (23 held 26, 22 held 46); of 100
+    traced after a warm-up cycle, 97 (two held none, ``held_window``).  A
+    window that holds no device event at all is lost and traced again, up
+    to ``LOST_WINDOWS`` times, and then it raises."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for _ in range(LOST_WINDOWS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+                prof.step()
+        # the cycle's own range ("ProfilerStep#1") is an event on the device too
+        device = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep")]
+        if device:
+            break
+    else:
+        raise AssertionError(f"{LOST_WINDOWS} traced windows of {reps} calls held no device "
+                             f"event")
     device_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
     named = [e for e in device if kernel in e.name]
     kernel_ms = sum(e.time_range.elapsed_us() for e in named) / 1e3
@@ -711,17 +744,20 @@ def profiled(fn, reps, table_path, kernel="fused_step_kernel"):
             "wall_ms": wall_ms, "device_busy": device_ms / wall_ms if wall_ms else 0.0}
 
 
-def held_window(fn, reps, kernel, at_least, windows=3) -> dict:
+def held_window(fn, reps, kernel, at_least, windows=6) -> dict:
     """``profiled(fn, reps, None, kernel)`` of a window whose trace holds at
-    least ``at_least`` launches of ``kernel``.  The profiler can drop a
-    window's device events, some or all of them: a window short of them is
-    profiled again, up to ``windows`` times, and then it raises."""
+    least ``at_least`` launches of ``kernel``.  The profiler can still lose
+    a window's device events, all of them (2 windows of 100 on an H100): a
+    window short of them is profiled again, up to ``windows`` times, and
+    then it raises."""
+    held = []
     for _ in range(windows):
         out = profiled(fn, reps, None, kernel=kernel)
         if out["kernel_launches"] >= at_least:
             return out
-    raise AssertionError(f"{windows} windows of {reps} calls held {out['kernel_launches']} "
-                         f"launches of {kernel!r}, the last, for {at_least} wanted")
+        held.append(out["kernel_launches"])
+    raise AssertionError(f"{windows} windows of {reps} calls held {held} launches of "
+                         f"{kernel!r}, for {at_least} wanted")
 
 
 def kernel_ms_per_launch(fn, reps, kernel) -> float:
@@ -854,6 +890,7 @@ def train_phase(dev, rng) -> dict:
                     "directional_grid_bf16": 0,
                     **fused_train_launches(19 * train_batches * TRAIN_EPOCHS,
                                            train_batches * TRAIN_EPOCHS,
+                                           rollout_in_launches() * train_batches * TRAIN_EPOCHS,
                                            val_losses=2 * val_batches * TRAIN_EPOCHS)}
             if train_launches != want:
                 raise AssertionError(f"training launched {train_launches}, expected {want}")
@@ -1029,7 +1066,8 @@ def graph_phase(dev, rng, card) -> dict:
                                    trainer.epoch_losses.copy()), "ms": ms})
         steps = epochs * len(trainer.epoch_losses) - (kind == "left_out")
         want = ({"directional_grid": 38 * steps, **loss_launches(steps)} if remat else
-                {"directional_grid": 19 * steps, **fused_train_launches(19 * steps, steps)})
+                {"directional_grid": 19 * steps,
+                 **fused_train_launches(19 * steps, steps, rollout_in_launches() * steps)})
         launches = counters.read(want, add=kind == "graphs")
         captured = 0 if trainer.graphs is None else len(trainer.graphs.graphs)
         return epochs_out, launches, captured, steps, trainer
@@ -1116,12 +1154,8 @@ def train_kernel_case(name, rng, s, a, dev, params) -> tuple:
         return torch.from_numpy(rng.random(shape) > 0.2).to(dev)
 
     h2n = params["hidden2normal"]["linear"]
-    if name == "fused_train_in":
-        emb = params["input_embedding"]["linear"]
-        args = (f(s, a, 2), f(s, a, 2), b(s, a), b(s, a), f(r, pool), emb["w"], emb["b"],
-                params["pool"]["embedding"][0]["b"], f(r, ld), f(r, 3), b(r))
-        nbytes = r * (2 * 8 + 2 + 4 * pool) + 4 * (3 * lin + pool) + r * (4 * (x_width + 1) + 13)
-        return args, (8, 9, 10), nbytes
+    if name == "fused_train_in":  # one step, 2 (A - 1) entries of a row not zero
+        return train_in_case(rng, 1, s, a, 2 * (a - 1), dev, params)[:3]
     if name == "fused_train_cell":
         args = (2 * f(r, 4 * hidden), f(r, ld), f(r, hidden), b(r), f(r, 2), h2n["w"], h2n["b"],
                 f(r, ld), f(r, hidden), f(r, 4 * hidden), f(r, hidden), f(r, 3), f(r, 5),
@@ -1151,6 +1185,121 @@ def train_kernel_case(name, rng, s, a, dev, params) -> tuple:
     return args, (3,), 4 * (2 + p * s * 5 + 19 * r * 5)
 
 
+def train_in_case(rng, t, s, a, nonzeros, dev, params) -> tuple:
+    """``fused_train_in``'s arguments for ``t`` steps of [S, A] at the
+    flagship's widths, drawn from ``rng``, its grid with ``nonzeros``
+    non-zero entries in each row at places drawn anew for each row and
+    -0.0 in up to eight more than as many of the others; the indices of the arguments it
+    writes; its bytes (each input read once, of ``W_grid`` the rows that
+    the grid's non-zero entries name, each output written once) and its
+    operations (the grid embedding's multiply-adds over the non-zero
+    entries, the K = 2 embedding's)."""
+    lin = params["input_embedding"]["linear"]["w"].shape[1]
+    g, pool = params["pool"]["embedding"][0]["w"].shape
+    hidden = params["hidden2normal"]["linear"]["w"].shape[0]
+    x_width = lin + 2 + pool
+    ld, r = x_width + hidden + 1, t * s * a
+
+    def f(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    def b(*shape):
+        return torch.from_numpy(rng.random(shape) > 0.2).to(dev)
+
+    order = rng.random((r, g)).argsort(axis=1)
+    grid = np.zeros((r, g), np.float32)
+    np.put_along_axis(grid, order[:, :nonzeros], rng.normal(size=(r, nonzeros)), axis=1)
+    np.put_along_axis(grid, order[:, nonzeros:2 * nonzeros + 8], -0.0, axis=1)
+    emb, layer = params["input_embedding"]["linear"], params["pool"]["embedding"][0]
+    args = (f(t, s, a, 2), f(t, s, a, 2), b(t, s, a), b(t, s, a),
+            torch.from_numpy(grid).to(dev), emb["w"], emb["b"], layer["w"], layer["b"],
+            f(r, ld), f(r, 3), b(r))
+    named = int((grid != 0).any(axis=0).sum())
+    nbytes = (r * (2 * 8 + 2 + 4 * g) + 4 * (3 * lin + pool) + 4 * pool * named
+              + r * (4 * (x_width + 1) + 13))
+    return args, (9, 10, 11), nbytes, 2 * r * (nonzeros * pool + 2 * lin)
+
+
+def held_to_plain(label, got, want, row) -> None:
+    """Each of a kernel's outputs ``got`` against its plain version's
+    ``want``: masks equal, every other within ``TRAIN_KERNEL_RTOL`` of its
+    largest magnitude, or it raises naming ``label``; the largest errors
+    kept in ``row``."""
+    for g, w in zip(got, want):
+        if g.dtype == torch.bool:
+            if not torch.equal(g, w):
+                raise AssertionError(f"{label}: a mask differs")
+            continue
+        err = float((g - w).abs().max())
+        rel = err / max(float(w.abs().max()), 1e-30)
+        if not rel <= TRAIN_KERNEL_RTOL:
+            raise AssertionError(f"{label}: an output differs by {rel} of its largest, beyond "
+                                 f"{TRAIN_KERNEL_RTOL}")
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["max_rel_err"] = max(row["max_rel_err"], rel)
+
+
+def train_in_figures(rng, dev, params, card) -> dict:
+    """Phase 6c (a) for ``fused_train_in``: the kernel against its plain
+    version at each of ``TRAIN_IN_SHAPES`` on each of ``TRAIN_IN_GRIDS``
+    (``held_to_plain``), with its device us a launch beside its bound; at
+    each shape on the train batch's grids (A = 8, 14 entries a row not
+    zero) its time at each split of the pool columns
+    (``fused_train.IN_COLUMNS_PER_LANE``) and the time of ``torch.addmm(b_grid,
+    grid, w_grid)``, the one PyTorch call for the product the kernel holds.
+    Returns the kernel table's row at a decoder step's 64 rows on those
+    grids, with ``cases`` and ``split``."""
+    from trajnetplusplusbaselines_torch.ops.cuda import fused_train
+
+    wrapper, plain = fused_train.fused_train_in, fused_train.fused_train_in_plain
+    kernel = "fused_train_in_kernel"
+    row, cases, split = {"max_abs_err": 0.0, "max_rel_err": 0.0}, [], []
+    for t, rows in TRAIN_IN_SHAPES:
+        for a, nonzeros in TRAIN_IN_GRIDS:
+            args, writes, nbytes, flop = train_in_case(rng, t, rows // (t * a), a, nonzeros, dev,
+                                                       params)
+            got, want = run_train_kernel(wrapper, args, writes), run_train_kernel(plain, args,
+                                                                                  writes)
+            torch.cuda.synchronize()
+            errs = {"max_abs_err": 0.0, "max_rel_err": 0.0}
+            held_to_plain(f"fused_train_in at {rows} rows, {nonzeros} entries a row not zero",
+                          got, want, errs)
+            for key in errs:
+                row[key] = max(row[key], errs[key])
+            copies = [v.clone() for v in args]
+            bytes_ms, ops_ms = 1e3 * nbytes / PEAK_BYTES, 1e3 * flop / PEAK_F32
+            case = {"steps": t, "rows": rows, "agents": a, "nonzeros": nonzeros, **errs,
+                    "bytes": nbytes, "bound_us": 1e3 * max(bytes_ms, ops_ms),
+                    "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                    "columns_per_lane": fused_train.in_columns_per_lane(rows),
+                    "device_us": 1e3 * kernel_ms_per_launch(lambda: wrapper(*copies),
+                                                            TRAIN_KERNEL_REPS, kernel)}
+            cases.append(case)
+            if (a, nonzeros) != TRAIN_IN_GRIDS[1]:
+                continue
+            grid, w_grid, b_grid = copies[4], copies[7], copies[8]
+            case["library_us"] = 1e3 * time_ms(lambda: torch.addmm(b_grid, grid, w_grid),
+                                               reps=TRAIN_KERNEL_REPS)
+            for cpl in fused_train.IN_COLUMNS_PER_LANE:
+                with mock.patch.object(fused_train, "in_columns_per_lane",
+                                       lambda rows, c=cpl: c):
+                    split.append({"rows": rows, "columns_per_lane": cpl,
+                                  "device_us": 1e3 * kernel_ms_per_launch(
+                                      lambda: wrapper(*copies), TRAIN_KERNEL_REPS, kernel)})
+            if (t, rows) == TRAIN_IN_SHAPES[0]:
+                row.update(
+                    rows=rows, bytes=nbytes, bound_ms=case["bound_us"] / 1e3,
+                    bound_by=case["bound_by"],
+                    ms=time_ms(lambda: wrapper(*copies), reps=TRAIN_KERNEL_REPS),
+                    plain_ms=time_ms(lambda: plain(*copies), reps=TRAIN_KERNEL_REPS),
+                    device_ms=case["device_us"] / 1e3, library_ms=case["library_us"] / 1e3)
+                row["bound_share"] = row["bound_ms"] / row["device_ms"]
+    for case in cases:
+        say("fused_train_in_case", card=card, **case)
+    say("fused_train_in_split", card=card, split=split)
+    return {**row, "cases": cases, "split": split}
+
+
 def run_train_kernel(fn, args, writes) -> list:
     """``fn`` on copies of ``args``; the written tensors, flat."""
     copies = [tuple(x.clone() for x in a) if isinstance(a, tuple) else a.clone()
@@ -1167,7 +1316,9 @@ def fused_train_phase(dev, rng, card) -> dict:
     largest magnitude (masks equal), with its time a call and a launch at
     the train step's 64 rows beside its bound (its bytes at the memory's
     rate), the plain version's time and, for the relu masks, the one
-    PyTorch call of the same function (``threshold_backward``).  (b) The
+    PyTorch call of the same function (``threshold_backward``);
+    ``fused_train_in`` at ``TRAIN_IN_SHAPES`` on ``TRAIN_IN_GRIDS``, its
+    splits timed, beside ``torch.addmm`` (``train_in_figures``).  (b) The
     route's loss and every leaf's gradient against the grid route's (and
     the plain loss's) on one batch (the trainer's defaults, a collision
     term, ``start_length`` 3), each leaf within ``FUSED_TRAIN_RTOL`` of its
@@ -1175,8 +1326,10 @@ def fused_train_phase(dev, rng, card) -> dict:
     batch size, whichever is larger (the NLL sums terms of both signs, one
     nat or so a scene, so the sum can sit near zero), each run's launches
     read exactly.  (c) The launches of one ``train_step``, eager and
-    replayed from its CUDA graph: 19 grid, 19 of each per-step kernel, one
-    ``fused_train_in_backward`` and one of each loss kernel.  (d)
+    replayed from its CUDA graph: 19 grid, 12 ``fused_train_in``
+    (``rollout_in_launches``), 19 ``fused_train_cell`` and 19 of its
+    backward, one ``fused_train_in_backward`` and one of each loss kernel.
+    (d)
     ``train_step`` at batch 8 on CUDA graphs, the fused train route against
     the grid route in turns: ms a step (CUDA events over back to back
     replays) and the device events and device time a step
@@ -1196,6 +1349,11 @@ def fused_train_phase(dev, rng, card) -> dict:
     # (a) each kernel against its plain version
     kernels = {}
     for name in TRAIN_KERNELS:
+        if name == "fused_train_in":
+            kernels[name] = train_in_figures(rng, dev, params, card)
+            say("fused_train_kernel", kernel=name, shapes=TRAIN_IN_SHAPES, card=card,
+                **{k: v for k, v in kernels[name].items() if k not in ("cases", "split")})
+            continue
         wrapper, plain = getattr(fused_train, name), getattr(fused_train, name + "_plain")
         row = {"max_abs_err": 0.0, "max_rel_err": 0.0}
         for s, a in TRAIN_KERNEL_SHAPES:
@@ -1203,18 +1361,7 @@ def fused_train_phase(dev, rng, card) -> dict:
             got, want = run_train_kernel(wrapper, args, writes), run_train_kernel(plain, args,
                                                                                   writes)
             torch.cuda.synchronize()
-            for g, w in zip(got, want):
-                if g.dtype == torch.bool:
-                    if not torch.equal(g, w):
-                        raise AssertionError(f"{name} at S={s} A={a}: a mask differs")
-                    continue
-                err = float((g - w).abs().max())
-                rel = err / max(float(w.abs().max()), 1e-30)
-                if not rel <= TRAIN_KERNEL_RTOL:
-                    raise AssertionError(f"{name} at S={s} A={a}: an output differs by {rel} of "
-                                         f"its largest, beyond {TRAIN_KERNEL_RTOL}")
-                row["max_abs_err"] = max(row["max_abs_err"], err)
-                row["max_rel_err"] = max(row["max_rel_err"], rel)
+            held_to_plain(f"{name} at S={s} A={a}", got, want, row)
             if (s, a) != TRAIN_KERNEL_SHAPES[0]:
                 continue
             # times at the train step's rows, on one set of buffers
@@ -1260,7 +1407,9 @@ def fused_train_phase(dev, rng, card) -> dict:
         steps = 19 - call.get("start_length", 0)
         counters.zero()
         fused = trainer.loss_and_grads(*batch, **call)
-        counters.read({"directional_grid": steps, **fused_train_launches(steps, 1)}, add=False)
+        counters.read({"directional_grid": steps,
+                       **fused_train_launches(steps, 1, rollout_in_launches(
+                           call.get("start_length", 0)))}, add=False)
         with grid_route(model):
             counters.zero()
             plain = trainer.loss_and_grads(*batch, **call)
@@ -1277,7 +1426,7 @@ def fused_train_phase(dev, rng, card) -> dict:
         **route_errs)
 
     # (c) a train step's launches, eager and replayed
-    want_step = {"directional_grid": 19, **fused_train_launches(19, 1)}
+    want_step = {"directional_grid": 19, **fused_train_launches(19, 1, rollout_in_launches())}
     eager = Trainer(model, tree_map(lambda x: x.clone(), params), step_lr(1e-3, 10))
     eager.graphs = None
     counters.zero()
@@ -1601,16 +1750,27 @@ def loss_launches(train_losses: int, val_losses: int = 0) -> dict:
     return {TRAIN_KERNELS[4]: train_losses + val_losses, TRAIN_KERNELS[5]: train_losses}
 
 
-def fused_train_launches(steps: int, rollouts: int, losses=None, val_losses: int = 0) -> dict:
+def rollout_in_launches(start_length: int = 0) -> int:
+    """``fused_train_in``'s launches in one flagship rollout from observed
+    frame ``start_length`` (``FusedTrainRollout.forward``): one for all the
+    encoder's ``OBS_LENGTH - 1 - start_length`` steps where it has any, and
+    one for each of the ``PRED_LENGTH - 1`` teacher-forced decoder steps."""
+    return int(OBS_LENGTH - 1 - start_length > 0) + PRED_LENGTH - 1
+
+
+def fused_train_launches(steps: int, rollouts: int, in_launches: int, losses=None,
+                         val_losses: int = 0) -> dict:
     """The fused train route's launches over ``rollouts`` train steps (a
     teacher-forced rollout under autograd, its loss and their backward) of
-    ``steps`` rollout steps in all: each per-step kernel once a step,
+    ``steps`` rollout steps in all: ``fused_train_in`` ``in_launches`` times
+    (the rollouts' ``rollout_in_launches``: the encoder's steps take one
+    launch a rollout), ``fused_train_cell`` and its backward once a step,
     ``fused_train_in_backward`` once a rollout, and ``loss_launches`` of
     ``losses`` train losses (by default one a rollout; a caller with its
     own loss, as ``tools.profile_train``, none) and ``val_losses``."""
     losses = rollouts if losses is None else losses
-    return {**dict.fromkeys(TRAIN_KERNELS[:3], steps), TRAIN_KERNELS[3]: rollouts,
-            **loss_launches(losses, val_losses)}
+    return {TRAIN_KERNELS[0]: in_launches, **dict.fromkeys(TRAIN_KERNELS[1:3], steps),
+            TRAIN_KERNELS[3]: rollouts, **loss_launches(losses, val_losses)}
 
 
 def plain_prediction_loss(rel, targets, scene_mask):
@@ -2355,6 +2515,7 @@ def training_options_phase(dev, rng, card) -> dict:
                 {"directional_grid": sum(19 - sl for sl in start_lengths),
                  "fused_dlstm_step": 2 * 19 * vb,
                  **fused_train_launches(sum(19 - sl for sl in start_lengths), hb,
+                                        sum(map(rollout_in_launches, start_lengths)),
                                         val_losses=2 * vb)})
             if not np.isfinite([r["loss"] for r in records["train-epoch"]]).all():
                 raise AssertionError(f"--obs_dropout logged {records['train-epoch']}")
@@ -2910,6 +3071,7 @@ def parallel_phase(dev, rng, card, p6_predictor) -> dict:
             counters.read({"directional_grid": 19 * train_batches,
                            "fused_dlstm_step": 2 * 19 * val_batches,
                            **fused_train_launches(19 * train_batches, train_batches,
+                                                  rollout_in_launches() * train_batches,
                                                   val_losses=2 * val_batches)})
             one_ms = time_ms(lambda: one.train_step(*batch), reps=PARALLEL_TIMED_REPS, warmup=2)
             want_grads, want_loss = first_step_grads(None, dev)
@@ -2934,6 +3096,7 @@ def parallel_phase(dev, rng, card, p6_predictor) -> dict:
                     want = {"directional_grid": 19 * train_batches,
                             "fused_dlstm_step": 2 * 19 * val_batches,
                             **fused_train_launches(19 * train_batches, train_batches,
+                                                   rollout_in_launches() * train_batches,
                                                    val_losses=2 * val_batches)}
                     if {k: got["launches"][k] for k in want} != want:
                         raise AssertionError(f"{name} rank {r} launched {got['launches']}, "
@@ -3083,7 +3246,9 @@ def parallel_phase(dev, rng, card, p6_predictor) -> dict:
             trace = profile_train.main(["--device", DEVICE, "--steps", "2",
                                         "--trace_dir", "profile_trace"])
             profile_launches = counters.read({"directional_grid": 19 * 3,
-                                              **fused_train_launches(19 * 3, 3, losses=0)})
+                                              **fused_train_launches(
+                                                  19 * 3, 3, rollout_in_launches() * 3,
+                                                  losses=0)})
             with open(trace) as f:
                 events = json.load(f)["traceEvents"]
             kernel_events = sum(GRID_KERNEL in e.get("name", "") for e in events)

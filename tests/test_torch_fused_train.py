@@ -13,10 +13,16 @@ run their plain versions, so these tests exercise the Function whole:
 - the routing predicate (``LSTM.takes_fused_train``): which configurations
   take the route and which keep theirs, and that the trainer's parity
   configuration of ``tests/test_torch_train.py`` runs through it;
+- ``fused_train_in``'s plain version (the input rows with the grid
+  embedding as a dense product) against the JAX package's input embedding
+  and ``GridBasedPooling.apply``'s grid embedding on JAX's own grids, f64,
+  at 1e-12: on the encoder's stack of 8 steps and on one decoder step;
 - the wrappers' launch path with the kernel stood in by its plain version:
   the arguments each passes (ints where the C entry takes ints), the
-  launches a rollout counts (19 per step, one ``fused_train_in_backward``)
-  and the same outputs as the plain path;
+  launches a rollout counts (19 of each per-step kernel but
+  ``fused_train_in``, 12 of it: one for the encoder's steps and one a
+  decoder step; one ``fused_train_in_backward``) and the same outputs as
+  the plain path;
 - each wrapper raising on a wrong dtype, device or shape; the counters in
   ``trainers/graphs.COUNTERS``; ``chip_smoke.graph_kernel_nodes`` reading
   the new kernels from a graph.
@@ -34,6 +40,7 @@ import pytest
 import torch
 
 from trajnetplusplusbaselines_tpu.models.lstm import LSTM as JLSTM
+from trajnetplusplusbaselines_tpu.ops.embeddings import input_embedding as j_input_embedding
 from trajnetplusplusbaselines_tpu.ops.pooling import GridBasedPooling as JGrid
 from trajnetplusplusbaselines_torch import losses
 from trajnetplusplusbaselines_torch.models.lstm import LSTM
@@ -192,6 +199,58 @@ def test_function_matches_the_jax_vjp():
                                    rtol=0)
 
 
+@pytest.mark.parametrize("a", [8, 24])
+@pytest.mark.parametrize("phase", ["encoder", "decoder"])
+def test_fused_train_in_matches_the_jax_embeddings(phase, a):
+    """``fused_train_in``'s plain version against the JAX package in f64,
+    each output within 1e-12 of its largest magnitude: the velocity part
+    against ``input_embedding`` (``models/lstm.py``'s step), the pool part
+    against ``GridBasedPooling.apply``'s ``mlp`` of JAX's own
+    ``make_grid``, on the encoder's 8 steps stacked into one call and on
+    one decoder step, at S = 4; each grid row holds at most 2 (A - 1)
+    non-zero entries, the sparsity the kernel sums over."""
+    jmodel = JLSTM(pool=JGrid(type_="directional", hidden_dim=16, cell_side=0.6, n=6,
+                              out_dim=16), embedding_dim=8, hidden_dim=16)
+    jparams = jax.tree.map(lambda x: jnp.asarray(x, jnp.float64),
+                           jmodel.init_params(jax.random.PRNGKey(a)))
+    xy, mask = _batch(s=4, a=a, seed=a)
+    lo, hi = (0, 8) if phase == "encoder" else (12, 13)
+    frames = (xy[lo:hi].numpy(), xy[lo + 1:hi + 1].numpy(), mask[lo:hi].numpy(),
+              mask[lo + 1:hi + 1].numpy())
+
+    def jax_step(jm, params, obs1, obs2, p1, p2):
+        vel = (obs2 - obs1) * (p1 & p2)[..., None]
+        grid = jm.pool.make_grid(None, obs1, obs2, p1, p2, params["pool"])
+        pooled, _ = jm.pool.apply(params["pool"], None, None, obs1, obs2, p1, p2)
+        return (grid.reshape(obs2.shape[0], obs2.shape[1], -1),
+                j_input_embedding(params["input_embedding"], vel), pooled)
+
+    run = with_traced_cell_side(jax_step, jmodel)
+    steps = [run(jparams, *(jnp.asarray(f[t]) for f in frames)) for t in range(hi - lo)]
+    grid, want_in, want_pool = (np.stack([np.asarray(step[i]) for step in steps])
+                                for i in range(3))
+    t, rows = hi - lo, 4 * a
+    grid = torch.from_numpy(grid).reshape(t * rows, -1)
+    assert int((grid != 0).sum(1).max()) <= 2 * (a - 1) and grid.any()
+    params = params_from_jax(jax.tree.map(np.asarray, jparams))
+    emb, layer = params["input_embedding"]["linear"], params["pool"]["embedding"][0]
+    x_width = emb["w"].shape[1] + 2 + layer["w"].shape[1]
+    xh = torch.full((t * rows, x_width + 17), np.nan, dtype=torch.float64)
+    v4 = torch.empty((t * rows, 3), dtype=torch.float64)
+    valid = torch.empty(t * rows, dtype=torch.bool)
+    fused_train.fused_train_in(*(torch.from_numpy(f) for f in frames), grid, emb["w"], emb["b"],
+                               layer["w"], layer["b"], xh, v4, valid)
+    lin = emb["w"].shape[1]
+    assert _relative(xh[:, :lin + 2], torch.from_numpy(want_in).reshape(t * rows, -1)) <= OWN_TOL
+    assert _relative(xh[:, lin + 2:x_width],
+                     torch.from_numpy(want_pool).reshape(t * rows, -1)) <= OWN_TOL
+    assert torch.equal(xh[:, -1], torch.ones(t * rows, dtype=torch.float64))
+    m = torch.from_numpy(frames[2] & frames[3]).reshape(-1)
+    assert torch.equal(valid, m) and not m.all()
+    vel = torch.from_numpy((frames[1] - frames[0]).reshape(-1, 2)) * m[:, None]
+    assert torch.equal(v4, torch.cat([4 * vel, torch.ones(t * rows, 1, dtype=torch.float64)], 1))
+
+
 # ------------------------------------------------------------------ routing
 ROUTES = [
     ("flagship_f64", {}, {}, True),
@@ -334,7 +393,7 @@ def _stand_in_launch(calls):
     """``fused_train._launch`` with each C entry run by its plain version,
     recording (entry, arguments) in ``calls``."""
     plain = {
-        "dlstm_train_in": lambda *a: fused_train.fused_train_in_plain(*a[:11]),
+        "dlstm_train_in": lambda *a: fused_train.fused_train_in_plain(*a[:12]),
         "dlstm_train_cell": lambda *a: fused_train.fused_train_cell_plain(
             *a[:14], None if a[14] is None else (a[14], a[15])),
         "dlstm_train_cell_backward": lambda *a: fused_train.fused_train_cell_backward_plain(
@@ -355,7 +414,9 @@ def _stand_in_launch(calls):
 def test_launch_path_counts_and_matches_the_plain_path():
     """With the kernels stood in by their plain versions, a train step's
     loss and gradients through the wrappers' launch path count 19 launches
-    of each per-step kernel and one of each other kernel, pass each C entry
+    of each per-step kernel but ``fused_train_in`` (12: one for the
+    encoder's 8 steps, one for each of the 11 decoder steps) and one of
+    each other kernel, pass each C entry
     the arguments its ctypes signature declares (a pointer for a tensor or
     None, an int for an int), and give the plain path's loss and gradients,
     in f32."""
@@ -373,7 +434,7 @@ def test_launch_path_counts_and_matches_the_plain_path():
             mock.patch.object(fused_train, "_launch", _stand_in_launch(calls)):
         got = trainer.loss_and_grads(xy, mask, scenes)
     counts = [k.launches - b for k, b in zip(fused_train.KERNELS, before)]
-    assert counts == [19, 19, 19, 1, 1, 1]
+    assert counts == [12, 19, 19, 1, 1, 1]
     assert torch.equal(got[0], want[0])
     for g, w in zip(got[1], want[1]):
         assert torch.equal(g, w)
@@ -424,15 +485,17 @@ def test_fused_loss_counts_no_padded_scene():
 
 
 # ------------------------------------------------------------------- checks
-def _in_args(rows=6, s=2, a=3, dtype=torch.float32):
-    lin, pool, ld = 6, 16, 8 + 16 + 16 + 1
-    return dict(obs1=torch.zeros(s, a, 2, dtype=dtype), obs2=torch.zeros(s, a, 2, dtype=dtype),
-                present1=torch.ones(s, a, dtype=torch.bool),
-                present2=torch.ones(s, a, dtype=torch.bool),
-                pre=torch.zeros(rows, pool, dtype=dtype),
+def _in_args(t=2, s=2, a=3, dtype=torch.float32):
+    rows, lin, g, pool, ld = t * s * a, 6, 32, 16, 8 + 16 + 16 + 1
+    return dict(obs1=torch.zeros(t, s, a, 2, dtype=dtype),
+                obs2=torch.zeros(t, s, a, 2, dtype=dtype),
+                present1=torch.ones(t, s, a, dtype=torch.bool),
+                present2=torch.ones(t, s, a, dtype=torch.bool),
+                grid=torch.zeros(rows, g, dtype=dtype),
                 w_emb=torch.zeros(2, lin, dtype=dtype), b_emb=torch.zeros(lin, dtype=dtype),
-                b_grid=torch.zeros(pool, dtype=dtype), xh=torch.zeros(rows, ld, dtype=dtype),
-                v4=torch.zeros(rows, 3, dtype=dtype), mask=torch.zeros(rows, dtype=torch.bool))
+                w_grid=torch.zeros(g, pool, dtype=dtype), b_grid=torch.zeros(pool, dtype=dtype),
+                xh=torch.zeros(rows, ld, dtype=dtype), v4=torch.zeros(rows, 3, dtype=dtype),
+                mask=torch.zeros(rows, dtype=torch.bool))
 
 
 def _cell_args(rows=6, hidden=16, ld=41, dtype=torch.float32):
@@ -504,7 +567,19 @@ def test_wrappers_raise_on_no_rows_and_on_a_short_row():
         fused_train.fused_train_cell(**_cell_args(rows=0))
     with pytest.raises(ValueError, match="wider"):
         args = _in_args()
-        args["xh"] = torch.zeros(6, 24)
+        args["xh"] = torch.zeros(12, 24)
+        fused_train.fused_train_in(**args)
+
+
+@pytest.mark.parametrize("name,shape", [("grid", (12, 31)), ("grid", (6, 32)),
+                                        ("w_grid", (31, 16)), ("w_grid", (32, 15))])
+def test_fused_train_in_raises_on_a_grid_or_w_grid_of_the_wrong_shape(name, shape):
+    """``fused_train_in`` takes ``grid`` [T S A, G] and ``w_grid`` [G, P]
+    with G and P those of the other arguments (``w_grid`` names them), and
+    raises on any other, naming the grid or its weights."""
+    args = _in_args()
+    args[name] = torch.zeros(shape)
+    with pytest.raises(ValueError, match="grid"):
         fused_train.fused_train_in(**args)
 
 
@@ -522,9 +597,9 @@ def test_counters_are_in_the_graph_bookkeeping():
 
 
 @pytest.mark.parametrize("names,want", [
-    (["fused_train_in", "fused_train_cell"] * 19 + ["fused_train_cell_backward"] * 19
-     + ["fused_train_in_backward", "directional_grid"],
-     {"fused_train_in": 19, "fused_train_cell": 19, "fused_train_cell_backward": 19,
+    (["fused_train_in"] + ["fused_train_cell"] * 8 + ["fused_train_in", "fused_train_cell"] * 11
+     + ["fused_train_cell_backward"] * 19 + ["fused_train_in_backward", "directional_grid"],
+     {"fused_train_in": 12, "fused_train_cell": 19, "fused_train_cell_backward": 19,
       "fused_train_in_backward": 1, "directional_grid": 1}),
     (["other", "fused_train_in_backward"], {"fused_train_in_backward": 1}),
 ])

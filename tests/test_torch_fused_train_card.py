@@ -7,7 +7,8 @@ jax, so that it runs on the card's machine without the suite's conftest:
 
 - each of the six kernels against its plain version, at the train step's
   64 rows, within 1e-6 of each output's largest magnitude (masks equal), on
-  the inputs ``chip_smoke.py`` phase 6c draws;
+  the inputs ``chip_smoke.py`` phase 6c draws; ``fused_train_in`` also at
+  each of phase 6c's rows and grids (0 to all entries of a row not zero);
 - a small directional LSTM's loss and gradients on the route against the
   grid route and the plain loss, within 1e-5 of each leaf's largest, with
   the launches a step counted.
@@ -59,6 +60,24 @@ def test_kernel_matches_its_plain_version(name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("steps,rows", chip_smoke.TRAIN_IN_SHAPES)
+@pytest.mark.parametrize("agents,nonzeros", chip_smoke.TRAIN_IN_GRIDS)
+def test_fused_train_in_matches_its_plain_version_on_every_grid(steps, rows, agents, nonzeros):
+    dev = _card()
+    params = chip_smoke.flagship_model().init_params(torch.Generator().manual_seed(0),
+                                                     device=dev)
+    args, writes, _, _ = chip_smoke.train_in_case(np.random.default_rng(1), steps,
+                                                  rows // (steps * agents), agents, nonzeros,
+                                                  dev, params)
+    got = chip_smoke.run_train_kernel(fused_train.fused_train_in, args, writes)
+    want = chip_smoke.run_train_kernel(fused_train.fused_train_in_plain, args, writes)
+    torch.cuda.synchronize()
+    row = {"max_abs_err": 0.0, "max_rel_err": 0.0}
+    chip_smoke.held_to_plain("fused_train_in", got, want, row)
+    assert row["max_rel_err"] <= chip_smoke.TRAIN_KERNEL_RTOL
+
+
+@pytest.mark.cuda
 def test_route_matches_the_grid_route_on_the_card():
     dev = _card()
     model = LSTM(pool=GridBasedPooling(type_="directional", hidden_dim=32, cell_side=0.6, n=6,
@@ -71,7 +90,7 @@ def test_route_matches_the_grid_route_on_the_card():
     before = [k.launches for k in kernels]
     loss, grads = trainer.loss_and_grads(xy, mask, scenes)
     torch.cuda.synchronize()
-    assert [k.launches - b for k, b in zip(kernels, before)] == [19, 19, 19, 19, 1, 1, 1]
+    assert [k.launches - b for k, b in zip(kernels, before)] == [19, 12, 19, 19, 1, 1, 1]
     with mock.patch.object(model, "takes_fused_train", lambda *a, **k: False), \
             mock.patch.object(fused_train, "prediction_loss", chip_smoke.plain_prediction_loss):
         loss_g, grads_g = trainer.loss_and_grads(xy, mask, scenes)

@@ -1,19 +1,39 @@
 // The elementwise work of the flagship's train step, for Hopper (sm_90a):
 // six kernels behind ops/cuda/fused_train.py's FusedTrainRollout (the
-// teacher-forced rollout under autograd, its products run by torch.mm) and
+// teacher-forced rollout under autograd; its gate, dh and weight-gradient
+// products run by torch.mm, the grid embedding's in fused_train_in) and
 // FusedPredictionLoss (the trainer's loss).
 //
 // Replaces no TPU kernel.  The JAX package differentiates its rollout with
 // jax.grad, and XLA fuses each step's elementwise ops; under PyTorch's
 // autograd the same work was ~100 kernels a step forward and backward, each
 // at launch scale at batch 8 (64 rows), so a train step's time was their
-// number.  These kernels do a step's elementwise work in two launches
-// forward and one backward, plus one launch a rollout:
+// number.  These kernels do a step's elementwise work in at most two
+// launches forward (the encoder's input rows take one launch for all its
+// steps) and one backward, plus one launch a rollout:
 //
-// - fused_train_in_kernel (once a step): the step's input row
-//   [relu(4 vel W_emb + b_emb) | 0, 0 | relu(pre + b_grid) | . | 1] into the
-//   stack xh, vel = (obs2 - obs1) * mask, the K = 2 product on the CUDA
-//   cores; [4 vel, 1] and the mask saved.  A thread per (row, column).
+// - fused_train_in_kernel (once a decoder step, once for all the encoder's
+//   steps): the step's input row [relu(4 vel W_emb + b_emb) | 0, 0 |
+//   relu(grid W_grid + b_grid) | . | 1] into the stack xh, vel = (obs2 -
+//   obs1) * mask, the K = 2 product on the CUDA cores; [4 vel, 1] and the
+//   mask saved.  The grid embedding is formed from the grid's occupied
+//   cells: the directional grid puts each other agent into at most one cell
+//   (out of range into cell 0), so a row holds at most 2 (A - 1) non-zero
+//   entries of its G = 2 n^2 (14 of 288 for the flagship's train batch),
+//   and the dense [rows, G] x [G, P] product does more than 20 times the
+//   work.  A warp per (row, part): part 0 writes the embedding, the tag
+//   and ones columns, v4 and the mask; each other part owns 32 CPL of the
+//   P pool columns (CPL a launch parameter, `dlstm_train_in`).  A pool
+//   warp loads its row of the grid in 16-byte loads (up to four a lane in
+//   flight), compacts the non-zero entries into shared memory as (index,
+//   value) pairs in ascending index order (a ballot per entry slot and a
+//   prefix over the lanes), then each
+//   lane sums value * W_grid[index, column] over the list for its CPL
+//   columns (rows of W_grid read coalesced, from L2), adds b_grid and
+//   applies the relu.  The list's length bounds the loop, so a denser row
+//   (larger A, up to all G entries) is computed the same way, only longer.
+//   Skipping an exact zero (-0.0 included) changes the sum only by the
+//   sign of a zero, for finite W_grid; a NaN entry is not zero and is kept.
 // - fused_train_cell_kernel (once a step): the LSTM cell from the gates'
 //   pre-activations (bias included), the masked update of h and c,
 //   Hidden2Normal ([H] x [H, 5] a row, a warp reducing it in a fixed order),
@@ -39,9 +59,12 @@
 // a handful of operations per byte.  At the train step's 64 rows that is
 // ~0.4 MB, 0.12 us at 3.35 TB/s, far under a launch's own ~2 us: at that
 // size each kernel costs a launch, so the design cuts launches (~100 a step
-// and ~240 a loss), not bytes.  No atomics: every sum runs in a fixed order,
-// so two runs, and a CUDA graph replay and an eager step, give the same
-// bits.  Widths (embedding, pool, hidden) come at run time.
+// and ~240 a loss), not bytes.  fused_train_in's bytes are its rows of
+// the grid and of xh and the rows of W_grid that the occupied cells name
+// (1 KB each at P = 256): ~0.2-0.4 MB at 64 rows.  No atomics: every sum
+// runs in a fixed order, so two runs, and a CUDA graph replay and an eager
+// step, give the same bits.  Widths (embedding, grid, pool, hidden) come
+// at run time.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,40 +86,126 @@ int element_blocks(long total) {
   return static_cast<int>(blocks < MAX_BLOCKS ? (blocks > 0 ? blocks : 1) : MAX_BLOCKS);
 }
 
+// Part 0 of a row: the velocity embedding, the tag and ones columns, v4
+// and the mask.
+__device__ void train_in_head(const float* __restrict__ obs1, const float* __restrict__ obs2,
+                              const uint8_t* __restrict__ p1, const uint8_t* __restrict__ p2,
+                              const float* __restrict__ w_emb, const float* __restrict__ b_emb,
+                              float* __restrict__ row, float* __restrict__ v4,
+                              uint8_t* __restrict__ mask, int r, int lin, int ld, int lane) {
+  const bool m = p1[r] && p2[r];
+  const float fm = m ? 1.f : 0.f;
+  const float vx = (obs2[2 * r] - obs1[2 * r]) * fm * 4.f;
+  const float vy = (obs2[2 * r + 1] - obs1[2 * r + 1]) * fm * 4.f;
+  for (int col = lane; col < lin; col += 32) {
+    row[col] = relu(fmaf(vy, w_emb[lin + col], vx * w_emb[col]) + b_emb[col]);
+  }
+  if (lane < 2) row[lin + lane] = 0.f;
+  if (lane == 0) {
+    row[ld - 1] = 1.f;
+    v4[3 * r] = vx;
+    v4[3 * r + 1] = vy;
+    v4[3 * r + 2] = 1.f;
+    mask[r] = m;
+  }
+}
+
+// A warp per (row, part), `warps` a block; `vec`: every row of the grid
+// starts on 16 bytes (G % 4 == 0 and an aligned base).
+template <int CPL>
 __global__ void fused_train_in_kernel(const float* __restrict__ obs1,
                                       const float* __restrict__ obs2,
                                       const uint8_t* __restrict__ p1,
                                       const uint8_t* __restrict__ p2,
-                                      const float* __restrict__ pre,
+                                      const float* __restrict__ grid,
                                       const float* __restrict__ w_emb,
                                       const float* __restrict__ b_emb,
+                                      const float* __restrict__ w_grid,
                                       const float* __restrict__ b_grid, float* __restrict__ xh,
                                       float* __restrict__ v4, uint8_t* __restrict__ mask,
-                                      int rows, int lin, int pool, int ld) {
-  const int emb = lin + 2, cols = emb + pool;
-  const long total = static_cast<long>(rows) * cols;
-  for (long idx = blockIdx.x * static_cast<long>(blockDim.x) + threadIdx.x; idx < total;
-       idx += static_cast<long>(gridDim.x) * blockDim.x) {
-    const int r = static_cast<int>(idx / cols), col = static_cast<int>(idx % cols);
-    const bool m = p1[r] && p2[r];
-    const float fm = m ? 1.f : 0.f;
-    const float vx = (obs2[2 * r] - obs1[2 * r]) * fm * 4.f;
-    const float vy = (obs2[2 * r + 1] - obs1[2 * r + 1]) * fm * 4.f;
-    float out = 0.f;
-    if (col < lin) {
-      out = relu(fmaf(vy, w_emb[lin + col], vx * w_emb[col]) + b_emb[col]);
-    } else if (col >= emb) {
-      out = relu(pre[static_cast<long>(r) * pool + col - emb] + b_grid[col - emb]);
+                                      int rows, int lin, int g, int pool, int ld, bool vec) {
+  extern __shared__ unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int parts = 1 + (pool + 32 * CPL - 1) / (32 * CPL);
+  const long w = static_cast<long>(blockIdx.x) * (blockDim.x >> 5) + warp;
+  if (w >= static_cast<long>(rows) * parts) return;  // a whole warp
+  const int r = static_cast<int>(w / parts), part = static_cast<int>(w % parts);
+  float* row = xh + static_cast<long>(r) * ld;
+  if (part == 0) {
+    train_in_head(obs1, obs2, p1, p2, w_emb, b_emb, row, v4, mask, r, lin, ld, lane);
+    return;
+  }
+  const int c0 = (part - 1) * 32 * CPL + lane;
+  float bias[CPL];  // read first: no load below waits on it
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) bias[j] = c0 + 32 * j < pool ? b_grid[c0 + 32 * j] : 0.f;
+  // this warp's list: G (index, value) slots
+  int* idx = reinterpret_cast<int*>(smem) + warp * 2 * g;
+  float* val = reinterpret_cast<float*>(idx + g);
+  const float* grow = grid + static_cast<long>(r) * g;
+  const unsigned below = (1u << lane) - 1u;
+  int n = 0;  // entries listed so far, the same in every lane
+  for (int base = 0; base < g; base += 4 * 128) {
+    // up to four 16-byte loads a lane in flight, then their compaction
+    float v[4][4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int k0 = base + 128 * c + 4 * lane;
+      if (vec && k0 < g) {
+        const float4 q = *reinterpret_cast<const float4*>(grow + k0);
+        v[c][0] = q.x;
+        v[c][1] = q.y;
+        v[c][2] = q.z;
+        v[c][3] = q.w;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) v[c][i] = k0 + i < g ? grow[k0 + i] : 0.f;
+      }
     }
-    float* row = xh + static_cast<long>(r) * ld;
-    row[col] = out;
-    if (col == 0) {
-      row[ld - 1] = 1.f;
-      v4[3 * r] = vx;
-      v4[3 * r + 1] = vy;
-      v4[3 * r + 2] = 1.f;
-      mask[r] = m;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int k0 = base + 128 * c + 4 * lane;
+      int before = 0, total = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const unsigned ballot = __ballot_sync(0xffffffffu, v[c][i] != 0.f);
+        before += __popc(ballot & below);
+        total += __popc(ballot);
+      }
+      int at = n + before;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (v[c][i] != 0.f) {
+          idx[at] = k0 + i;
+          val[at] = v[c][i];
+          ++at;
+        }
+      }
+      n += total;
     }
+  }
+  __syncwarp();
+  // each lane's CPL columns, summed over the list in ascending order (a
+  // deeper unroll, or all of a batch's loads ahead of its multiply-adds,
+  // took more registers and was no faster on an H100)
+  const float* wcol = w_grid + c0;
+  float acc[CPL];
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) acc[j] = 0.f;
+#pragma unroll 4
+  for (int e = 0; e < n; ++e) {
+    const float x = val[e];
+    const float* wr = wcol + static_cast<long>(idx[e]) * pool;
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+      if (c0 + 32 * j < pool) acc[j] = fmaf(x, wr[32 * j], acc[j]);
+    }
+  }
+  float* out = row + lin + 2;
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) {
+    const int col = c0 + 32 * j;
+    if (col < pool) out[col] = relu(acc[j] + bias[j]);
   }
 }
 
@@ -332,17 +441,39 @@ extern "C" {
 // Every tensor contiguous float32 (masks one byte a row, torch.bool) on
 // the current device; each returns cudaGetLastError() after its launch.
 
-// obs1, obs2 [rows, 2]; p1, p2, mask [rows]; pre [rows, pool]; w_emb [2,
-// lin]; b_emb [lin]; b_grid [pool]; xh [rows, ld] (ld > lin + 2 + pool);
-// v4 [rows, 3].
+// obs1, obs2 [rows, 2]; p1, p2, mask [rows]; grid [rows, g]; w_emb [2,
+// lin]; b_emb [lin]; w_grid [g, pool]; b_grid [pool]; xh [rows, ld] (ld >
+// lin + 2 + pool); v4 [rows, 3].  cols_per_lane (1, 2, 4 or 8): the pool
+// columns a lane of a pool warp owns, so a row takes 1 + pool / (32
+// cols_per_lane) warps.
 int dlstm_train_in(const float* obs1, const float* obs2, const uint8_t* p1, const uint8_t* p2,
-                   const float* pre, const float* w_emb, const float* b_emb,
-                   const float* b_grid, float* xh, float* v4, uint8_t* mask, int rows, int lin,
-                   int pool, int ld, void* stream) {
-  const long total = static_cast<long>(rows) * (lin + 2 + pool);
-  fused_train_in_kernel<<<element_blocks(total), ELEMENT_THREADS, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      obs1, obs2, p1, p2, pre, w_emb, b_emb, b_grid, xh, v4, mask, rows, lin, pool, ld);
+                   const float* grid, const float* w_emb, const float* b_emb,
+                   const float* w_grid, const float* b_grid, float* xh, float* v4,
+                   uint8_t* mask, int rows, int lin, int g, int pool, int ld, int cols_per_lane,
+                   void* stream) {
+  // 4 warps a block, fewer where a wide grid's lists would pass 48 KB (G
+  // is at most 2 * 32^2, 16 KB a list)
+  const int list_bytes = 2 * g * static_cast<int>(sizeof(float));
+  int warps = 4;
+  while (warps > 1 && warps * list_bytes > 48 * 1024) --warps;
+  const long parts = 1 + (pool + 32L * cols_per_lane - 1) / (32L * cols_per_lane);
+  const long blocks = (static_cast<long>(rows) * parts + warps - 1) / warps;
+  const bool vec = g % 4 == 0 && reinterpret_cast<uintptr_t>(grid) % 16 == 0;
+  const size_t smem = static_cast<size_t>(warps) * list_bytes;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid_dims(static_cast<unsigned>(blocks));
+#define TRAIN_IN_LAUNCH(CPL)                                                                 \
+  fused_train_in_kernel<CPL><<<grid_dims, 32 * warps, smem, st>>>(                           \
+      obs1, obs2, p1, p2, grid, w_emb, b_emb, w_grid, b_grid, xh, v4, mask, rows, lin, g, \
+      pool, ld, vec)
+  switch (cols_per_lane) {
+    case 1: TRAIN_IN_LAUNCH(1); break;
+    case 2: TRAIN_IN_LAUNCH(2); break;
+    case 4: TRAIN_IN_LAUNCH(4); break;
+    case 8: TRAIN_IN_LAUNCH(8); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef TRAIN_IN_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,9 +8,10 @@ ops a step forward and ~50 backward (the input embedding, the gate sum,
 ``lstm_pointwise``, Hidden2Normal, the masked update, the teacher-forcing
 lanes, and every weight's gradient added in at each of its 19 uses), and
 the trainer's loss ~240 more, ~2,400 kernels a train step at batch 8, each
-at launch scale.  ``FusedTrainRollout`` runs the grid stage, two products
-and two kernels a step forward and a kernel and a product backward, and
-takes each weight's gradient once, over all the steps that used it;
+at launch scale.  ``FusedTrainRollout`` runs the grid stage, one product
+and two kernels a step forward (the encoder's input rows in one kernel for
+all its steps) and a kernel and a product backward, and takes each
+weight's gradient once, over all the steps that used it;
 ``FusedPredictionLoss`` is one kernel forward and one backward.
 ``LSTM.takes_fused_train`` (``models/lstm.py``) decides where they apply.
 
@@ -24,14 +25,17 @@ S * A, the stack ``xh`` [T + 1, R, E + P + H + 1] holding each step's
 
 1. the grid stage (``grid``: ``models/lstm.py`` passes the name it
    imports, the kernel on the card);
-2. ``pre = grid @ W_grid`` (``torch.mm``; the encoder's grids read data
-   only, so theirs are made first and multiplied as one product);
-3. ``fused_train_in``: ``x = [relu(4 vel W_emb + b_emb) | 0, 0 | relu(pre +
-   b_grid)]`` into ``xh[g]``, with ``vel = (obs2 - obs1) * mask``; ``[4 vel,
-   1]`` and the mask saved;
-4. ``gates = xh[g] @ [W_ih; W_hh; b_ih + b_hh]`` (``torch.mm``: the gate
+2. ``fused_train_in``: ``x = [relu(4 vel W_emb + b_emb) | 0, 0 |
+   relu(grid W_grid + b_grid)]`` into ``xh[g]``, with ``vel = (obs2 - obs1)
+   * mask``; ``[4 vel, 1]`` and the mask saved.  The grid embedding is
+   formed inside the kernel from each row's occupied cells (at most 2 (A -
+   1) of the grid's G entries are not zero), so no ``torch.mm`` runs for
+   it.  The encoder's grids read data only: they are made first, and one
+   ``fused_train_in`` writes the input rows of all the encoder's steps, so
+   a rollout launches it ``(T_obs > 1) + n_dec`` times;
+3. ``gates = xh[g] @ [W_ih; W_hh; b_ih + b_hh]`` (``torch.mm``: the gate
    bias rides the ones column);
-5. ``fused_train_cell``: the i/f/g/o activations, ``c'``, ``h'``, the
+4. ``fused_train_cell``: the i/f/g/o activations, ``c'``, ``h'``, the
    masked update into ``xh[g + 1]`` and ``c[g + 1]``, Hidden2Normal and its
    head, the masked normal, the output position and, where the decoder's
    teacher-forcing chain reads it, the primary's own position and validity
@@ -65,16 +69,18 @@ import torch
 
 
 # ------------------------------------------------------------ plain versions
-def fused_train_in_plain(obs1, obs2, present1, present2, pre, w_emb, b_emb, b_grid, xh, v4,
-                         mask) -> None:
-    """Step 3 of a rollout, written into ``xh`` [R, ld] (the x part and the
-    ones column), ``v4`` [R, 3] (``[4 vel, 1]``) and ``mask`` [R]."""
-    lin, pool = w_emb.shape[1], pre.shape[1]
+def fused_train_in_plain(obs1, obs2, present1, present2, grid, w_emb, b_emb, w_grid, b_grid, xh,
+                         v4, mask) -> None:
+    """Step 2 of a rollout for N = T * S * A rows, written into ``xh``
+    [N, ld] (the x part and the ones column), ``v4`` [N, 3] (``[4 vel,
+    1]``) and ``mask`` [N]; the grid embedding as the dense product ``grid
+    @ w_grid``."""
+    lin, pool = w_emb.shape[1], w_grid.shape[1]
     m = present1 & present2
     vel = ((obs2 - obs1) * m[..., None]).reshape(-1, 2) * 4.0
     xh[:, :lin] = torch.relu(vel @ w_emb + b_emb)
     xh[:, lin:lin + 2] = 0.0
-    xh[:, lin + 2:lin + 2 + pool] = torch.relu(pre + b_grid)
+    xh[:, lin + 2:lin + 2 + pool] = torch.relu(grid @ w_grid + b_grid)
     xh[:, -1] = 1.0
     v4[:, :2] = vel
     v4[:, 2] = 1.0
@@ -83,7 +89,7 @@ def fused_train_in_plain(obs1, obs2, present1, present2, pre, w_emb, b_emb, b_gr
 
 def fused_train_cell_plain(gates, xh, c, mask, obs2, w_h2n, b_h2n, xh_next, c_next, act, tc,
                            sig, rel, pred, chain=None) -> None:
-    """Step 5 of a rollout, written into its outputs: ``xh_next``'s h part
+    """Step 4 of a rollout, written into its outputs: ``xh_next``'s h part
     and ones column, ``c_next``, ``act`` [R, 4H] (sigmoid i, f, tanh g,
     sigmoid o), ``tc`` (tanh c'), ``sig`` [R, 3] (the head's sigmoids),
     ``rel`` [R, 5], ``pred`` [R, 2]; ``chain``: (positions [S, A, 2],
@@ -241,32 +247,49 @@ def _launch(entry: str, *args):
     build.check(status, entry)
 
 
+# the pool columns a lane of ``fused_train_in_kernel``'s pool warps owns
+# (a row takes 1 + P / (32 c) warps): (most rows, c) in order, and above
+# them the last split; the fastest on an H100 at 64, 512 and 8,192 rows
+# (chip_smoke.py phase 6c (a) times each)
+IN_COLUMNS_PER_LANE = (1, 2, 4, 8)
+IN_SPLITS = ((256, 2), (2048, 4))
+
+
+def in_columns_per_lane(rows: int) -> int:
+    """The split of ``fused_train_in``'s pool columns over the warps at
+    ``rows`` rows (``IN_SPLITS``)."""
+    return next((c for most, c in IN_SPLITS if rows <= most), IN_COLUMNS_PER_LANE[-1])
+
+
 # ------------------------------------------------------------------ wrappers
-def fused_train_in(obs1, obs2, present1, present2, pre, w_emb, b_emb, b_grid, xh, v4,
+def fused_train_in(obs1, obs2, present1, present2, grid, w_emb, b_emb, w_grid, b_grid, xh, v4,
                    mask) -> None:
-    """Step 3 of the rollout (``fused_train_in_plain``): positions [S, A, 2],
-    presence [S, A] bool, ``pre`` [R, P], ``w_emb`` [2, E - 2], ``b_emb``,
-    ``b_grid``; writes ``xh`` [R, ld] (ld > E + P), ``v4`` [R, 3], ``mask``
-    [R] bool.  The kernel on the card, the plain version on the CPU."""
-    s, a = obs2.shape[:2]
-    rows, lin, pool = s * a, w_emb.shape[1], pre.shape[1]
+    """Step 2 of the rollout (``fused_train_in_plain``) for T steps of
+    [S, A] at once, N = T * S * A rows: positions [T, S, A, 2], presence [T,
+    S, A] bool, ``grid`` [N, G], ``w_emb`` [2, E - 2], ``b_emb``, ``w_grid``
+    [G, P], ``b_grid``; writes ``xh`` [N, ld] (ld > E + P), ``v4`` [N, 3],
+    ``mask`` [N] bool.  The kernel on the card (the grid embedding summed
+    over each row's non-zero entries), the plain version on the CPU."""
+    t, s, a = obs2.shape[:3]
+    rows, lin, (g, pool) = t * s * a, w_emb.shape[1], w_grid.shape
     dev, dt = obs2.device, w_emb.dtype
     _check_rows(rows)
     for name, x, shape, dtype in (
-            ("obs1", obs1, (s, a, 2), dt), ("obs2", obs2, (s, a, 2), dt),
-            ("present1", present1, (s, a), torch.bool), ("present2", present2, (s, a), torch.bool),
-            ("pre", pre, (rows, pool), dt), ("w_emb", w_emb, (2, lin), dt),
-            ("b_emb", b_emb, (lin,), dt), ("b_grid", b_grid, (pool,), dt),
+            ("obs1", obs1, (t, s, a, 2), dt), ("obs2", obs2, (t, s, a, 2), dt),
+            ("present1", present1, (t, s, a), torch.bool),
+            ("present2", present2, (t, s, a), torch.bool), ("grid", grid, (rows, g), dt),
+            ("w_emb", w_emb, (2, lin), dt), ("b_emb", b_emb, (lin,), dt),
+            ("w_grid", w_grid, (g, pool), dt), ("b_grid", b_grid, (pool,), dt),
             ("xh", xh, (rows, xh.shape[1]), dt), ("v4", v4, (rows, 3), dt),
             ("mask", mask, (rows,), torch.bool)):
         _check(name, x, shape, dtype, dev)
     if xh.shape[1] <= lin + 2 + pool:
         raise ValueError(f"xh's rows ({xh.shape[1]}) must be wider than x ({lin + 2 + pool})")
     if not _kernel_device(obs2):
-        return fused_train_in_plain(obs1, obs2, present1, present2, pre, w_emb, b_emb, b_grid,
-                                    xh, v4, mask)
-    _launch("dlstm_train_in", obs1, obs2, present1, present2, pre, w_emb, b_emb, b_grid, xh, v4,
-            mask, rows, lin, pool, xh.shape[1])
+        return fused_train_in_plain(obs1, obs2, present1, present2, grid, w_emb, b_emb, w_grid,
+                                    b_grid, xh, v4, mask)
+    _launch("dlstm_train_in", obs1, obs2, present1, present2, grid, w_emb, b_emb, w_grid, b_grid,
+            xh, v4, mask, rows, lin, g, pool, xh.shape[1], in_columns_per_lane(rows))
     fused_train_in.launches += 1
 
 
@@ -276,7 +299,7 @@ fused_train_in.launches = 0
 def fused_train_cell(gates, xh, c, mask, obs2, w_h2n, b_h2n, xh_next, c_next, act, tc, sig,
                      rel, pred, chain: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                      ) -> None:
-    """Step 5 of the rollout (``fused_train_cell_plain``): ``gates`` [R, 4H]
+    """Step 4 of the rollout (``fused_train_cell_plain``): ``gates`` [R, 4H]
     (bias included), ``xh``/``xh_next`` [R, ld] (h at columns ld - H - 1 ..
     ld - 2), ``c``/``c_next``/``tc`` [R, H], ``mask`` [R] bool, ``obs2`` [R,
     2], ``w_h2n`` [H, 5], ``b_h2n`` [5], ``act`` [R, 4H], ``sig`` [R, 3],
@@ -460,27 +483,29 @@ class FusedTrainRollout(torch.autograd.Function):
         # of the step two before (the encoder's last two fill its first two)
         chain = torch.cat([observed[-1:], truth])
         chain_mask = torch.cat([observed_mask[-1:], truth_mask])
-        # the encoder's grids read data only: their products with W_grid are
-        # one product over the encoder's steps
-        enc_frames = [(observed[g], observed[g + 1], observed_mask[g], observed_mask[g + 1])
-                      for g in range(te)]
-        grids = [torch.cat([grid(*frames).reshape(rows, -1) for frames in enc_frames])]
-        enc_pre = grids[0] @ w_grid
+        # the encoder's grids and input rows read data only: the grids are
+        # made first, and one fused_train_in writes the rows of all its steps
+        grids = []
+        if te:
+            obs, obs_mask = observed.contiguous(), observed_mask.contiguous()
+            grids.append(torch.cat([grid(obs[g], obs[g + 1], obs_mask[g], obs_mask[g + 1])
+                                    .reshape(rows, -1) for g in range(te)]))
+            fused_train_in(obs[:te], obs[1:], obs_mask[:te], obs_mask[1:], grids[0], w_emb,
+                           b_emb, w_grid, b_grid, xh[:te].view(te * rows, ld),
+                           v4[:te].view(te * rows, 3), valid[:te].view(te * rows))
         for g in range(steps):
             if g < te:
-                frames, w_cell = enc_frames[g], w_enc
-                pre = enc_pre[g * rows:(g + 1) * rows]
+                w_cell, obs2 = w_enc, obs[g + 1]
             else:
-                k = g - te
-                frames = (chain[k], chain[k + 1], chain_mask[k], chain_mask[k + 1])
-                w_cell = w_dec
-                grids.append(grid(*frames).reshape(rows, -1))
-                pre = grids[-1] @ w_grid
-            fused_train_in(*frames, pre, w_emb, b_emb, b_grid, xh[g], v4[g],
-                           valid[g].view(rows))
+                k, w_cell, obs2 = g - te, w_dec, chain[g - te + 1]
+                frames = (chain[k:k + 1], chain[k + 1:k + 2], chain_mask[k:k + 1],
+                          chain_mask[k + 1:k + 2])
+                grids.append(grid(*(x[0] for x in frames)).reshape(rows, -1))
+                fused_train_in(*frames, grids[-1], w_emb, b_emb, w_grid, b_grid, xh[g], v4[g],
+                               valid[g].view(rows))
             slot = g - te + 2
             fused_train_cell(xh[g] @ w_cell, xh[g], c[g], valid[g].view(rows),
-                             frames[1].view(rows, 2), w_h2n, b_h2n, xh[g + 1], c[g + 1], act[g],
+                             obs2.view(rows, 2), w_h2n, b_h2n, xh[g + 1], c[g + 1], act[g],
                              tc[g], sig[g], rel[g].view(rows, 5), pred[g].view(rows, 2),
                              (chain[slot], chain_mask[slot]) if 0 <= slot <= n_dec else None)
         ctx.mark_non_differentiable(valid)
