@@ -359,10 +359,17 @@ GRAPH_LEFT_OUT = 2  # the control's step left out, counted from 1
 # against their plain versions at (scenes, agents): the bench's train step
 # (64 rows) and 8,192 rows; within TRAIN_KERNEL_RTOL of each output's
 # largest magnitude (f32 rounding: expf and tanhf against torch's, the
-# order of Hidden2Normal's sums and of the K = 2 embedding)
+# order of the sums of Hidden2Normal, of the cell kernels' products and of
+# the K = 2 embedding)
 TRAIN_KERNELS = ("fused_train_in", "fused_train_cell", "fused_train_cell_backward",
                  "fused_train_in_backward", "fused_train_loss", "fused_train_loss_backward")
 TRAIN_KERNEL_SHAPES = ((TRAIN_BATCH, 8), (1024, 8))
+# the cell kernels' further cases, (scenes, agents, hidden units): rows that
+# are not a multiple of a tile, a narrower hidden state than the
+# flagship's (not a multiple of a block's 16 units), a wider one (32 units
+# a block); each also at every tile of ``fused_train.CELL_TILE_ROWS`` it
+# takes
+TRAIN_CELL_EDGES = ((3, 5, 128), (TRAIN_BATCH, 8, 40), (TRAIN_BATCH, 8, 200))
 # fused_train_in against its plain version at (steps, rows): a decoder
 # step, the encoder's 8 steps in one launch, 8,192 rows; on grids of
 # (agents, non-zero entries a row): none, the train batch's 2 (A - 1) at A
@@ -1153,22 +1160,10 @@ def train_kernel_case(name, rng, s, a, dev, params) -> tuple:
     def b(*shape):
         return torch.from_numpy(rng.random(shape) > 0.2).to(dev)
 
-    h2n = params["hidden2normal"]["linear"]
     if name == "fused_train_in":  # one step, 2 (A - 1) entries of a row not zero
         return train_in_case(rng, 1, s, a, 2 * (a - 1), dev, params)[:3]
-    if name == "fused_train_cell":
-        args = (2 * f(r, 4 * hidden), f(r, ld), f(r, hidden), b(r), f(r, 2), h2n["w"], h2n["b"],
-                f(r, ld), f(r, hidden), f(r, 4 * hidden), f(r, hidden), f(r, 3), f(r, 5),
-                f(r, 2), (f(s, a, 2), b(s, a)))
-        nbytes = (r * (4 * 6 * hidden + 9) + 4 * 6 * hidden
-                  + r * (4 * (7 * hidden + 1) + 40) + 9 * s)
-        return args, (7, 8, 9, 10, 11, 12, 13, 14), nbytes
-    if name == "fused_train_cell_backward":
-        args = (f(r, 5), f(r, 2), b(r), torch.sigmoid(f(r, 3)), torch.sigmoid(f(r, 4 * hidden)),
-                torch.tanh(f(r, hidden)), f(r, hidden), h2n["w"], f(r, hidden), f(r, hidden),
-                f(r, hidden), f(r, 4 * hidden), f(r, 5))
-        nbytes = r * (41 + 4 * 9 * hidden) + 4 * 5 * hidden + r * (4 * 6 * hidden + 20)
-        return args, (9, 10, 11, 12), nbytes
+    if name in ("fused_train_cell", "fused_train_cell_backward"):
+        return train_cell_case(name, rng, s, a, dev, params)[:3]
     if name == "fused_train_in_backward":
         n = 19 * r
         return (f(n, x_width), f(n, ld)), (0,), 3 * 4 * n * x_width
@@ -1183,6 +1178,50 @@ def train_kernel_case(name, rng, s, a, dev, params) -> tuple:
         return args, (3, 4, 5), 4 * (p * s * 7 + 2 + p * s * 5) + s
     args = (8.0 + f(), f(p, s, 5), 60.0 + f(), f(19, s, a, 5))
     return args, (3,), 4 * (2 + p * s * 5 + 19 * r * 5)
+
+
+def train_cell_case(name, rng, s, a, dev, params) -> tuple:
+    """``fused_train_cell``'s or its backward's arguments at [S, A] and the
+    widths of ``params``, drawn from ``rng`` as ``train_kernel_case``'s, the
+    cell's weights those of ``params`` (the forward's the encoder's
+    ``w_cell`` and, last, its ``cell_pack``, which the plain version does
+    not take: ``plain_args``; the backward's ``W_hh`` rows a view of the
+    decoder's, as at the encoder's last step); the indices of the arguments
+    it writes; its bytes (each input read once, each output written once)
+    and its operations (the product's multiply-adds and Hidden2Normal's)."""
+    from trajnetplusplusbaselines_torch.ops.cuda import fused_train
+
+    hidden = params["hidden2normal"]["linear"]["w"].shape[0]
+    lin = params["input_embedding"]["linear"]["w"].shape[1]
+    pool = params["pool"]["embedding"][0]["w"].shape[1]
+    x_width = lin + 2 + pool
+    ld, r, g4 = x_width + hidden + 1, s * a, 4 * hidden
+
+    def f(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    def b(*shape):
+        return torch.from_numpy(rng.random(shape) > 0.2).to(dev)
+
+    h2n = params["hidden2normal"]["linear"]
+    if name == "fused_train_cell":
+        xh, w_cell = f(r, ld), fused_train.cell_weights(params["encoder"])
+        xh[:, -1] = 1.0
+        args = (xh, w_cell, f(r, hidden), b(r), f(r, 2), h2n["w"], h2n["b"], f(r, ld),
+                f(r, hidden), f(r, g4), f(r, hidden), f(r, 3), f(r, 5), f(r, 2),
+                (f(s, a, 2), b(s, a)), fused_train.cell_pack(w_cell, hidden))
+        nbytes = (4 * (r * ld + ld * g4 + r * hidden + 2 * r + 5 * hidden + 5) + r
+                  + 4 * r * (7 * hidden + 1 + 10) + 9 * s)
+        flop = 2 * r * (ld * g4 + 5 * hidden)
+        return args, (7, 8, 9, 10, 11, 12, 13, 14), nbytes, flop
+    w_hh = fused_train.cell_weights(params["decoder"])[x_width:x_width + hidden]
+    args = (f(r, 5), f(r, 2), b(r), torch.sigmoid(f(r, 3)), torch.sigmoid(f(r, g4)),
+            torch.tanh(f(r, hidden)), f(r, hidden), h2n["w"], 0.1 * f(r, g4), w_hh, f(r, hidden),
+            f(r, hidden), f(r, g4), f(r, 5))
+    nbytes = (4 * (r * (10 + 2 * g4 + 4 * hidden) + hidden * (g4 + 5)) + r
+              + 4 * r * (g4 + 2 * hidden + 5))
+    flop = 2 * r * (g4 * hidden + 5 * hidden)
+    return args, (10, 11, 12, 13), nbytes, flop
 
 
 def train_in_case(rng, t, s, a, nonzeros, dev, params) -> tuple:
@@ -1218,6 +1257,13 @@ def train_in_case(rng, t, s, a, nonzeros, dev, params) -> tuple:
     nbytes = (r * (2 * 8 + 2 + 4 * g) + 4 * (3 * lin + pool) + 4 * pool * named
               + r * (4 * (x_width + 1) + 13))
     return args, (9, 10, 11), nbytes, 2 * r * (nonzeros * pool + 2 * lin)
+
+
+def relative_errors(got, want) -> list:
+    """Each float output's largest difference as a share of its largest
+    magnitude in ``want`` (masks left out)."""
+    return [float((g.double() - w.double()).abs().max()) / max(float(w.abs().max()), 1e-30)
+            for g, w in zip(got, want) if g.is_floating_point()]
 
 
 def held_to_plain(label, got, want, row) -> None:
@@ -1300,6 +1346,104 @@ def train_in_figures(rng, dev, params, card) -> dict:
     return {**row, "cases": cases, "split": split}
 
 
+def plain_args(name, args):
+    """``args`` of a train kernel's wrapper as its plain version takes them:
+    ``fused_train_cell``'s less its ``w_pack``."""
+    return args[:15] if name == "fused_train_cell" else args
+
+
+def cell_library_call(name, copies):
+    """The one PyTorch call of the product a cell kernel holds, on its
+    arguments: the gates ``torch.addmm(b, x_h, [W_ih; W_hh])``, or ``dh``'s
+    ``torch.mm(dg_next, W_hh_next^T)``."""
+    if name == "fused_train_cell":
+        xh, w_cell = copies[0], copies[1]
+        return lambda: torch.addmm(w_cell[-1], xh[:, :-1], w_cell[:-1])
+    dg_next, w_hh = copies[8], copies[9]
+    return lambda: torch.mm(dg_next, w_hh.t())
+
+
+def train_cell_figures(name, rng, dev, params, card) -> dict:
+    """Phase 6c (a) for ``fused_train_cell`` or its backward: the kernel at
+    each tile it takes against its plain version run in f64 on the same
+    inputs (``held_to_plain``, ``TRAIN_KERNEL_RTOL``; a product over K in
+    f32 rounds by up to ~2e-6 of an output's largest, whatever its order)
+    at ``TRAIN_KERNEL_SHAPES`` and ``TRAIN_CELL_EDGES``, the errors of the
+    kernel and of the plain version in f32 against f64 printed beside
+    (``fused_train_cell_f64`` lines), each case with its device us a launch
+    beside
+    its bound (bytes or operations, whichever is larger), the library call
+    of its product (``cell_library_call``, f32, TF32 off) and its device us
+    at each tile of ``fused_train.CELL_TILE_ROWS`` it takes (``split``).
+    Returns the kernel table's row at the train step's 64 rows, with
+    ``cases`` and ``split``."""
+    from trajnetplusplusbaselines_torch.ops.cuda import fused_train
+
+    wrapper, plain = getattr(fused_train, name), getattr(fused_train, name + "_plain")
+    kernel = f"{name}_kernel"
+    hidden0 = params["hidden2normal"]["linear"]["w"].shape[0]
+    row, cases, split = {"max_abs_err": 0.0, "max_rel_err": 0.0}, [], []
+    for s, a, hidden in ([(s, a, hidden0) for s, a in TRAIN_KERNEL_SHAPES]
+                         + list(TRAIN_CELL_EDGES)):
+        case_params = params if hidden == hidden0 else flagship_model(hidden).init_params(
+            torch.Generator().manual_seed(GRAPH_SEED), device=dev)
+        args, writes, nbytes, flop = train_cell_case(name, rng, s, a, dev, case_params)
+        rows, tiles = s * a, fused_train.CELL_TILE_ROWS if hidden <= 128 else (8,)
+        want = run_train_kernel(plain, plain_args(name, args), writes)
+        # the plain version on the same inputs in f64: the kernel is held to
+        # it, since the f32 product's own rounding (cuBLAS's order over K =
+        # 449) reaches 2.3e-6 of an output's largest at 8,192 rows
+        wide = run_train_kernel(plain, [tuple(x.double() if x.is_floating_point() else x
+                                              for x in v) if isinstance(v, tuple)
+                                        else v.double() if v.is_floating_point() else v
+                                        for v in plain_args(name, args)], writes)
+        errs = {"max_abs_err": 0.0, "max_rel_err": 0.0}
+        for tile in tiles:  # each tile the kernel takes, held to the plain version
+            with mock.patch.object(fused_train, "cell_tile_rows", lambda r, h, k="", t=tile: t):
+                got = run_train_kernel(wrapper, args, writes)
+            torch.cuda.synchronize()
+            # each output's error as a share of its largest magnitude: the
+            # kernel and the plain version in f32, each against f64
+            say("fused_train_cell_f64", kernel=name, scenes=s, agents=a, hidden=hidden,
+                tile_rows=tile, card=card, kernel_vs_plain=relative_errors(got, want),
+                kernel_vs_f64=relative_errors(got, wide), plain_vs_f64=relative_errors(want, wide))
+            held_to_plain(f"{name} at S={s} A={a} H={hidden}, {tile} rows a tile", got, wide,
+                          errs)
+        for key in errs:
+            row[key] = max(row[key], errs[key])
+        copies = [tuple(x.clone() for x in v) if isinstance(v, tuple) else v.clone()
+                  for v in args]
+        bytes_ms, ops_ms = 1e3 * nbytes / PEAK_BYTES, 1e3 * flop / PEAK_F32
+        case = {"scenes": s, "agents": a, "rows": rows, "hidden": hidden, **errs,
+                "bytes": nbytes, "flop": flop, "bound_us": 1e3 * max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "tile_rows": fused_train.cell_tile_rows(
+                    rows, hidden, "backward" if name.endswith("backward") else "forward"),
+                "device_us": 1e3 * kernel_ms_per_launch(lambda: wrapper(*copies),
+                                                        TRAIN_KERNEL_REPS, kernel),
+                "library_us": 1e3 * time_ms(cell_library_call(name, copies),
+                                            reps=TRAIN_KERNEL_REPS)}
+        case["bound_share"] = case["bound_us"] / case["device_us"]
+        cases.append(case)
+        for tile in tiles:
+            with mock.patch.object(fused_train, "cell_tile_rows", lambda r, h, k="", t=tile: t):
+                split.append({"rows": rows, "hidden": hidden, "tile_rows": tile,
+                              "device_us": 1e3 * kernel_ms_per_launch(
+                                  lambda: wrapper(*copies), TRAIN_KERNEL_REPS, kernel)})
+        if (s, a, hidden) == (*TRAIN_KERNEL_SHAPES[0], hidden0):
+            row.update(rows=rows, bytes=nbytes, bound_ms=case["bound_us"] / 1e3,
+                       bound_by=case["bound_by"],
+                       ms=time_ms(lambda: wrapper(*copies), reps=TRAIN_KERNEL_REPS),
+                       plain_ms=time_ms(lambda: plain(*plain_args(name, copies)),
+                                        reps=TRAIN_KERNEL_REPS),
+                       device_ms=case["device_us"] / 1e3, library_ms=case["library_us"] / 1e3,
+                       bound_share=case["bound_share"])
+    for case in cases:
+        say("fused_train_cell_case", kernel=name, card=card, **case)
+    say("fused_train_cell_split", kernel=name, card=card, split=split)
+    return {**row, "cases": cases, "split": split}
+
+
 def run_train_kernel(fn, args, writes) -> list:
     """``fn`` on copies of ``args``; the written tensors, flat."""
     copies = [tuple(x.clone() for x in a) if isinstance(a, tuple) else a.clone()
@@ -1318,7 +1462,10 @@ def fused_train_phase(dev, rng, card) -> dict:
     rate), the plain version's time and, for the relu masks, the one
     PyTorch call of the same function (``threshold_backward``);
     ``fused_train_in`` at ``TRAIN_IN_SHAPES`` on ``TRAIN_IN_GRIDS``, its
-    splits timed, beside ``torch.addmm`` (``train_in_figures``).  (b) The
+    splits timed, beside ``torch.addmm`` (``train_in_figures``); the two
+    cell kernels also at ``TRAIN_CELL_EDGES``, each case's bound by bytes
+    or operations, its tiles timed, beside the library call of the product
+    it holds (``train_cell_figures``).  (b) The
     route's loss and every leaf's gradient against the grid route's (and
     the plain loss's) on one batch (the trainer's defaults, a collision
     term, ``start_length`` 3), each leaf within ``FUSED_TRAIN_RTOL`` of its
@@ -1349,9 +1496,11 @@ def fused_train_phase(dev, rng, card) -> dict:
     # (a) each kernel against its plain version
     kernels = {}
     for name in TRAIN_KERNELS:
-        if name == "fused_train_in":
-            kernels[name] = train_in_figures(rng, dev, params, card)
-            say("fused_train_kernel", kernel=name, shapes=TRAIN_IN_SHAPES, card=card,
+        if name in ("fused_train_in", "fused_train_cell", "fused_train_cell_backward"):
+            kernels[name] = (train_in_figures(rng, dev, params, card) if name == "fused_train_in"
+                             else train_cell_figures(name, rng, dev, params, card))
+            say("fused_train_kernel", kernel=name, card=card,
+                shapes=TRAIN_IN_SHAPES if name == "fused_train_in" else TRAIN_KERNEL_SHAPES,
                 **{k: v for k, v in kernels[name].items() if k not in ("cases", "split")})
             continue
         wrapper, plain = getattr(fused_train, name), getattr(fused_train, name + "_plain")
@@ -2919,12 +3068,15 @@ def first_step_grads(mesh, dev):
     return grads, float(loss)
 
 
-def flagship_model():
+def flagship_model(hidden_dim=128):
+    """The flagship D-LSTM; ``hidden_dim`` other than 128 for a cell
+    kernel's case at another hidden width."""
     from trajnetplusplusbaselines_torch.models.lstm import LSTM
     from trajnetplusplusbaselines_torch.ops.pooling import GridBasedPooling
 
-    return LSTM(pool=GridBasedPooling(type_="directional", hidden_dim=128, cell_side=CELL_SIDE,
-                                      n=N, out_dim=256), embedding_dim=64, hidden_dim=128)
+    return LSTM(pool=GridBasedPooling(type_="directional", hidden_dim=hidden_dim,
+                                      cell_side=CELL_SIDE, n=N, out_dim=256),
+                embedding_dim=64, hidden_dim=hidden_dim)
 
 
 def rank_main(outdir) -> int:
@@ -3710,9 +3862,9 @@ def main() -> int:
         "name": name,
         "route": "cuda",
         "source": csrc + "fused_train.cu",
-        "replaces": "none: no pallas_call; the step's elementwise ops of "
+        "replaces": "none: no pallas_call; the step's work of "
                     "trajnetplusplusbaselines_tpu/models/lstm.py:114 under jax.grad, which XLA "
-                    "fuses",
+                    "compiles",
         "launches": sum(by_path[name].values()),
         "launches_by_path": by_path[name],
         **{key: row[key] for key in ("max_abs_err", "max_rel_err", "ms", "device_ms",

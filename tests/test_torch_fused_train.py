@@ -22,7 +22,13 @@ run their plain versions, so these tests exercise the Function whole:
   launches a rollout counts (19 of each per-step kernel but
   ``fused_train_in``, 12 of it: one for the encoder's steps and one a
   decoder step; one ``fused_train_in_backward``) and the same outputs as
-  the plain path;
+  the plain path; the matrix products a flagship train step dispatches
+  there, the kernels' own left out: only the 7 once-a-rollout ones (the
+  cell kernels form the gate and ``dh`` products themselves);
+- the backward's carried ``dh`` through step g + 1's cell (the decoder's at
+  the last encoder step) against autograd with unlike cells; ``cell_pack``'s
+  layout; the hidden width and row limits of the cell kernels, in the
+  wrappers and in the route predicate;
 - each wrapper raising on a wrong dtype, device or shape; the counters in
   ``trainers/graphs.COUNTERS``; ``chip_smoke.graph_kernel_nodes`` reading
   the new kernels from a graph.
@@ -38,6 +44,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from trajnetplusplusbaselines_tpu.models.lstm import LSTM as JLSTM
 from trajnetplusplusbaselines_tpu.ops.embeddings import input_embedding as j_input_embedding
@@ -389,15 +396,40 @@ def test_trainer_loss_follows_the_criterion_not_the_route(name, criterion, fused
 
 
 # ------------------------------------------------- the wrappers' launch path
+def _unpack(w_pack, hidden):
+    """``w_cell`` [ld, 4H] from ``fused_train.cell_pack``'s [S, ld, 4, U]."""
+    slices, ld, _, units = w_pack.shape
+    return w_pack.permute(1, 2, 0, 3).reshape(ld, 4, slices * units)[:, :, :hidden].reshape(
+        ld, 4 * hidden)
+
+
+@pytest.mark.parametrize("hidden", [16, 40, 128, 200])
+def test_cell_pack_puts_each_slice_in_one_run(hidden):
+    """``cell_pack``: slice s, row k, gate q, unit u holds ``w_cell[k, q H
+    + s U + u]`` (U = 16 units a slice, 32 above 128), zero past H, and a
+    slice's rows are one contiguous run."""
+    ld = 7
+    w_cell = torch.arange(ld * 4 * hidden, dtype=torch.float32).reshape(ld, 4 * hidden) + 1
+    pack = fused_train.cell_pack(w_cell, hidden)
+    units = 16 if hidden <= 128 else 32
+    slices = -(-hidden // units)
+    assert pack.shape == (slices, ld, 4, units) and pack.is_contiguous()
+    for s, k, q, u in np.ndindex(*pack.shape):
+        j = s * units + u
+        assert float(pack[s, k, q, u]) == (float(w_cell[k, q * hidden + j]) if j < hidden else 0.0)
+    assert torch.equal(_unpack(pack, hidden), w_cell)
+
+
 def _stand_in_launch(calls):
     """``fused_train._launch`` with each C entry run by its plain version,
     recording (entry, arguments) in ``calls``."""
     plain = {
         "dlstm_train_in": lambda *a: fused_train.fused_train_in_plain(*a[:12]),
         "dlstm_train_cell": lambda *a: fused_train.fused_train_cell_plain(
-            *a[:14], None if a[14] is None else (a[14], a[15])),
+            a[0], _unpack(a[1], a[2].shape[1]), *a[2:14],
+            None if a[14] is None else (a[14], a[15])),
         "dlstm_train_cell_backward": lambda *a: fused_train.fused_train_cell_backward_plain(
-            *a[:13]),
+            *a[:14]),
         "dlstm_train_in_backward": lambda *a: fused_train.fused_train_in_backward_plain(*a[:2]),
         "dlstm_train_loss": lambda *a: fused_train.fused_train_loss_plain(*a[:6]),
         "dlstm_train_loss_backward": lambda *a: fused_train.fused_train_loss_backward_plain(
@@ -444,6 +476,118 @@ def test_launch_path_counts_and_matches_the_plain_path():
         kinds = [build._I if isinstance(a, int) else build._P for a in args] + [build._P]
         assert kinds == signatures[entry], entry
         assert all(a is None or isinstance(a, (int, torch.Tensor)) for a in args)
+
+
+class _ProductCount(TorchDispatchMode):
+    """Records the output shape of every matrix product dispatched while
+    ``counting`` is True (``aten.mm`` in any overload, ``addmm``, ``bmm``)."""
+
+    PRODUCTS = (torch.ops.aten.mm, torch.ops.aten.addmm, torch.ops.aten.bmm)
+
+    def __init__(self):
+        super().__init__()
+        self.shapes, self.counting = [], True
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if self.counting and func.overloadpacket in self.PRODUCTS:
+            self.shapes.append(tuple(out.shape))
+        return out
+
+
+def test_train_step_runs_only_the_once_a_rollout_products():
+    """A flagship train step (the flagship's widths, S = 2, A = 3, f32)
+    through the wrappers' launch path, each kernel stood in by its plain
+    version and what that runs left uncounted: the step dispatches 7 matrix
+    products, the once-a-rollout ones of the backward (the encoder's and
+    the decoder's ``dx``, the embedding's, ``W_grid``'s, each cell's and
+    Hidden2Normal's weight gradient), and none in the forward step loop or
+    the backward recurrence: 37 fewer than when the 19 gate products and the
+    18 ``dh`` products ran beside the kernels."""
+    import chip_smoke
+
+    model = chip_smoke.flagship_model()
+    params = model.init_params(torch.Generator().manual_seed(2))
+    trainer = Trainer(model, params, common.step_lr(1e-3, 10), batch_size=2, augment=False)
+    xy, mask = _batch(s=2, a=3, dtype=torch.float32)
+    counted = _ProductCount()
+    stand_in = _stand_in_launch([])
+
+    def launch(entry, *args):
+        counted.counting = False
+        try:
+            stand_in(entry, *args)
+        finally:
+            counted.counting = True
+
+    before = [k.launches for k in fused_train.KERNELS]
+    with mock.patch.object(fused_train, "_kernel_device", lambda x: True), \
+            mock.patch.object(fused_train, "_launch", launch), counted:
+        loss, grads = trainer.loss_and_grads(xy, mask, torch.ones(2, dtype=torch.bool))
+    assert [k.launches - b for k, b in zip(fused_train.KERNELS, before)] == [12, 19, 19, 1, 1, 1]
+    assert torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads)
+    lin, (g, pool), hidden = 62, params["pool"]["embedding"][0]["w"].shape, 128
+    x_width, rows = lin + 2 + pool, 6
+    ld = x_width + hidden + 1
+    assert sorted(counted.shapes) == sorted([
+        (8 * rows, x_width), (11 * rows, x_width), (3, lin), (g, pool), (ld, 4 * hidden),
+        (ld, 4 * hidden), (hidden + 1, 5)])
+
+
+def test_backward_takes_the_decoder_cell_at_the_encoder_boundary():
+    """The last encoder step's carried ``dh`` comes through the decoder's
+    ``W_hh`` (step g + 1's cell), the other steps' through their own: with
+    the decoder's ``W_hh`` far from the encoder's (-3 times it) and its
+    other weights drawn anew, the route's gradients equal autograd's
+    through the grid route within 1e-12 of each leaf's largest, f64, at
+    ``start_length`` 0 and 5 (8 and 3 encoder steps)."""
+    model = _model()
+    params = _params(model)
+    with torch.no_grad():
+        params["decoder"]["w_hh"].copy_(-3.0 * params["encoder"]["w_hh"])
+    leaves = _leaves(params)
+    xy, mask = _batch(s=3, a=4, seed=6)
+    for start_length in (0, 5):
+        grads = []
+        for fused in (True, False):
+            rel, pred, _ = _forward(model, params, xy, mask, start_length, fused)
+            grads.append(torch.autograd.grad((rel ** 2).sum() + pred.sum(), leaves,
+                                             materialize_grads=True))
+        for got, want in zip(*grads):
+            assert _relative(got, want) <= OWN_TOL
+
+
+@pytest.mark.parametrize("where", ["fused_train_cell", "fused_train_cell_backward", "route",
+                                   "row"])
+def test_a_hidden_state_above_the_kernels_limit(where):
+    """``MAX_HIDDEN`` + 1 units: each cell wrapper raises, naming the limit
+    (it runs at ``MAX_HIDDEN``), and such a model keeps its step routes
+    (``LSTM.takes_fused_train`` false) while one at the limit takes the
+    route; the same for a row of xh longer than ``MAX_ROW``."""
+    limit = fused_train.MAX_HIDDEN
+    if where == "row":
+        row = fused_train.MAX_ROW
+        fused_train.fused_train_cell(**_cell_args(rows=2, ld=row))
+        with pytest.raises(ValueError, match=f"at most {row}"):
+            fused_train.fused_train_cell(**_cell_args(rows=2, ld=row + 1))
+        for pool_dim, want in ((row - 8 - 17, True), (row - 8 - 16, False)):
+            model = LSTM(pool=_model(out_dim=pool_dim).pool, embedding_dim=8, hidden_dim=16)
+            assert model.takes_fused_train(True, True, dtype=torch.float32) is want
+        return
+    if where == "route":
+        for hidden, want in ((limit, True), (limit + 1, False)):
+            model = LSTM(pool=_model().pool, embedding_dim=8, hidden_dim=hidden)
+            assert model.fused_train is want
+            assert model.takes_fused_train(True, True, dtype=torch.float32) is want
+        return
+    make = _cell_args if where == "fused_train_cell" else _backward_args
+    kw = dict(hidden=limit, ld=limit + 25) if where == "fused_train_cell" else dict(hidden=limit)
+    getattr(fused_train, where)(**make(rows=2, **kw))
+    kw["hidden"] = limit + 1
+    if "ld" in kw:
+        kw["ld"] += 1
+    with pytest.raises(ValueError, match=f"1 to {limit} hidden units"):
+        getattr(fused_train, where)(**make(rows=2, **kw))
 
 
 # --------------------------------------------------------------------- loss
@@ -500,7 +644,7 @@ def _in_args(t=2, s=2, a=3, dtype=torch.float32):
 
 def _cell_args(rows=6, hidden=16, ld=41, dtype=torch.float32):
     z = lambda *shape: torch.zeros(*shape, dtype=dtype)  # noqa: E731
-    return dict(gates=z(rows, 4 * hidden), xh=z(rows, ld), c=z(rows, hidden),
+    return dict(xh=z(rows, ld), w_cell=z(ld, 4 * hidden), c=z(rows, hidden),
                 mask=torch.ones(rows, dtype=torch.bool), obs2=z(rows, 2), w_h2n=z(hidden, 5),
                 b_h2n=z(5), xh_next=z(rows, ld), c_next=z(rows, hidden),
                 act=z(rows, 4 * hidden), tc=z(rows, hidden), sig=z(rows, 3), rel=z(rows, 5),
@@ -511,7 +655,8 @@ def _backward_args(rows=6, hidden=16, dtype=torch.float32):
     z = lambda *shape: torch.zeros(*shape, dtype=dtype)  # noqa: E731
     return dict(d_rel=z(rows, 5), d_pred=z(rows, 2), mask=torch.ones(rows, dtype=torch.bool),
                 sig=z(rows, 3), act=z(rows, 4 * hidden), tc=z(rows, hidden), c=z(rows, hidden),
-                w_h2n=z(hidden, 5), dh_gemm=z(rows, hidden), dh=z(rows, hidden),
+                w_h2n=z(hidden, 5), dg_next=z(rows, 4 * hidden),
+                w_hh_next=z(hidden + 1, 4 * hidden)[1:], dh=z(rows, hidden),
                 dc=z(rows, hidden), dg=z(rows, 4 * hidden), draw=z(rows, 5))
 
 

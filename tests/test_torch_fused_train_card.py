@@ -9,6 +9,11 @@ jax, so that it runs on the card's machine without the suite's conftest:
   64 rows, within 1e-6 of each output's largest magnitude (masks equal), on
   the inputs ``chip_smoke.py`` phase 6c draws; ``fused_train_in`` also at
   each of phase 6c's rows and grids (0 to all entries of a row not zero);
+  the two cell kernels, which form the step's products themselves, against
+  their plain versions run in f64 (the f32 product's own rounding reaches
+  the tolerance), also at 8,192 rows, at a row count that is not a multiple
+  of a tile and at a narrower and a wider hidden width than the
+  flagship's, at every tile they take, each run twice to the same bits;
 - a small directional LSTM's loss and gradients on the route against the
   grid route and the plain loss, within 1e-5 of each leaf's largest, with
   the launches a step counted.
@@ -48,7 +53,8 @@ def test_kernel_matches_its_plain_version(name):
                                                    params)
     before = getattr(fused_train, name).launches
     got = chip_smoke.run_train_kernel(getattr(fused_train, name), args, writes)
-    want = chip_smoke.run_train_kernel(getattr(fused_train, name + "_plain"), args, writes)
+    want = chip_smoke.run_train_kernel(getattr(fused_train, name + "_plain"),
+                                       chip_smoke.plain_args(name, args), writes)
     torch.cuda.synchronize()
     assert getattr(fused_train, name).launches == before + 1
     for g, w in zip(got, want):
@@ -57,6 +63,36 @@ def test_kernel_matches_its_plain_version(name):
         else:
             err = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
             assert err <= chip_smoke.TRAIN_KERNEL_RTOL
+
+
+CELL_CASES = ([(s, a, 128) for s, a in chip_smoke.TRAIN_KERNEL_SHAPES]
+              + list(chip_smoke.TRAIN_CELL_EDGES))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", fused_train.CELL_TILE_ROWS)
+@pytest.mark.parametrize("scenes,agents,hidden", CELL_CASES)
+@pytest.mark.parametrize("name", ["fused_train_cell", "fused_train_cell_backward"])
+def test_cell_kernels_match_their_plain_versions(name, scenes, agents, hidden, tile):
+    dev = _card()
+    if hidden > 128 and tile != 8:
+        pytest.skip("above 128 units a block takes 32 units and 8 rows only")
+    params = chip_smoke.flagship_model(hidden).init_params(torch.Generator().manual_seed(0),
+                                                           device=dev)
+    args, writes, _, _ = chip_smoke.train_cell_case(name, np.random.default_rng(2), scenes,
+                                                    agents, dev, params)
+    with mock.patch.object(fused_train, "cell_tile_rows", lambda rows, hidden, kernel="": tile):
+        runs = [chip_smoke.run_train_kernel(getattr(fused_train, name), args, writes)
+                for _ in range(2)]
+    wide = [tuple(x.double() if x.is_floating_point() else x for x in v)
+            if isinstance(v, tuple) else v.double() if v.is_floating_point() else v
+            for v in chip_smoke.plain_args(name, args)]
+    want = chip_smoke.run_train_kernel(getattr(fused_train, name + "_plain"), wide, writes)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(*runs))
+    row = {"max_abs_err": 0.0, "max_rel_err": 0.0}
+    chip_smoke.held_to_plain(name, runs[0], want, row)
+    assert row["max_rel_err"] <= chip_smoke.TRAIN_KERNEL_RTOL
 
 
 @pytest.mark.cuda

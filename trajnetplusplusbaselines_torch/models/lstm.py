@@ -42,14 +42,15 @@ from whether autograd records) once per rollout, before any launch:
 Above the step routes, a whole rollout takes ``fused_train`` where
 ``LSTM.takes_fused_train`` holds: a teacher-forced ``forward`` that autograd
 records, of a goal-free, ``pool_to_input`` directional grid of the grid
-stage with the ``one_layer`` embedding and no blur or ``pool_size``, not in
-bf16 (on the card only in f32, the kernels' dtype) and not under ``remat``.
-A ``--tp`` trainer gathers the full params before ``forward``, so it takes
+stage with the ``one_layer`` embedding and no blur or ``pool_size``, widths
+the cell kernels take (``fused_train.takes_widths``), not in bf16 (on
+the card only in f32, the kernels' dtype) and not under ``remat``.  A
+``--tp`` trainer gathers the full params before ``forward``, so it takes
 the route as one process does.  There ``ops/cuda/fused_train.FusedTrainRollout``
 computes the rollout with a hand-written backward: per step the grid stage
-(the name this module imports, ``directional_grid``), two products and two
-kernels forward, a kernel and a product backward.  Every other rollout
-steps through ``step`` on its step route.
+(the name this module imports, ``directional_grid``) and two kernels
+forward, one kernel backward, each kernel forming the step's products
+itself.  Every other rollout steps through ``step`` on its step route.
 
 The route also follows the compute dtype (``with_dtype``): the fused step
 is an f32 kernel, so a model that computes in bf16 takes ``"grid"`` for
@@ -100,7 +101,7 @@ from ..ops.cuda.fused_step import (
     lstm_weights,
     weights_from_params,
 )
-from ..ops.cuda.fused_train import fused_train_rollout
+from ..ops.cuda.fused_train import fused_train_rollout, takes_widths
 from ..ops.embeddings import init_hidden2normal, init_input_embedding, input_embedding
 from ..ops.pooling.grid import GridBasedPooling
 from ..utils.convert import params_to
@@ -189,11 +190,13 @@ class LSTM:
         """True when ``FusedTrainRollout`` computes this model's rollout
         under autograd: a goal-free, ``pool_to_input`` directional grid of
         the grid stage with the ``one_layer`` embedding and no blur or
-        ``pool_size``, not under ``remat``."""
+        ``pool_size``, widths the cell kernels take (``fused_train.takes_widths``:
+        at most ``MAX_HIDDEN`` units), not under ``remat``."""
         pool = self.pool
         return (self.grid_stage and pool.embedding_arch == "one_layer"
                 and pool.blur_size == 1 and pool.pool_size == 1 and not self.goal_flag
-                and self.pool_to_input and not self.remat)
+                and self.pool_to_input and takes_widths(self.input_dim, self.hidden_dim)
+                and not self.remat)
 
     def takes_fused_train(self, records: bool, teacher: bool, positions_record: bool = False,
                           dtype: torch.dtype = torch.float32, device="cpu") -> bool:

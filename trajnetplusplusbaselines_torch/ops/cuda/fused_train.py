@@ -1,5 +1,5 @@
 """The flagship's teacher-forced rollout under autograd as one
-``torch.autograd.Function``, its elementwise work in four CUDA kernels.
+``torch.autograd.Function``, its per-step work in four CUDA kernels.
 
 Port-only: it replaces no TPU kernel.  The JAX package differentiates its
 rollout with ``jax.grad`` and leaves each step's elementwise ops to XLA,
@@ -8,10 +8,11 @@ ops a step forward and ~50 backward (the input embedding, the gate sum,
 ``lstm_pointwise``, Hidden2Normal, the masked update, the teacher-forcing
 lanes, and every weight's gradient added in at each of its 19 uses), and
 the trainer's loss ~240 more, ~2,400 kernels a train step at batch 8, each
-at launch scale.  ``FusedTrainRollout`` runs the grid stage, one product
-and two kernels a step forward (the encoder's input rows in one kernel for
-all its steps) and a kernel and a product backward, and takes each
-weight's gradient once, over all the steps that used it;
+at launch scale.  ``FusedTrainRollout`` runs the grid stage and two
+kernels a step forward (the encoder's input rows in one kernel for all its
+steps) and one kernel backward, each kernel forming the step's product with
+the cell's weights itself, and takes each weight's gradient once, over all
+the steps that used it;
 ``FusedPredictionLoss`` is one kernel forward and one backward.
 ``LSTM.takes_fused_train`` (``models/lstm.py``) decides where they apply.
 
@@ -33,9 +34,10 @@ S * A, the stack ``xh`` [T + 1, R, E + P + H + 1] holding each step's
    it.  The encoder's grids read data only: they are made first, and one
    ``fused_train_in`` writes the input rows of all the encoder's steps, so
    a rollout launches it ``(T_obs > 1) + n_dec`` times;
-3. ``gates = xh[g] @ [W_ih; W_hh; b_ih + b_hh]`` (``torch.mm``: the gate
-   bias rides the ones column);
-4. ``fused_train_cell``: the i/f/g/o activations, ``c'``, ``h'``, the
+3. ``fused_train_cell``: the gates ``xh[g] @ [W_ih; W_hh; b_ih + b_hh]``
+   (the gate bias rides the ones column; formed inside the kernel from
+   each cell's weights packed once a rollout, ``cell_pack``, so no
+   ``torch.mm`` runs a step), the i/f/g/o activations, ``c'``, ``h'``, the
    masked update into ``xh[g + 1]`` and ``c[g + 1]``, Hidden2Normal and its
    head, the masked normal, the output position and, where the decoder's
    teacher-forcing chain reads it, the primary's own position and validity
@@ -43,10 +45,11 @@ S * A, the stack ``xh`` [T + 1, R, E + P + H + 1] holding each step's
    ``tanh(c')`` and the head's sigmoids are saved.
 
 Backward, g from T - 1 down to 0: ``fused_train_cell_backward`` takes the
-step's gradients of ``rel_pred`` and ``pred`` and the carried ``dh``, ``dc``
-and gives the gates' gradient, the raw head's and the carried ``dh`` (kept
-where the agent is absent) and ``dc``; ``dh += dgates @ W_hh^T``
-(``torch.mm``) for step g - 1.  Then once a rollout: ``dx = dgates @
+step's gradients of ``rel_pred`` and ``pred`` and the carried ``dh``, ``dc``,
+adds step g + 1's ``dgates @ W_hh^T`` to ``dh`` (formed inside the kernel,
+with step g + 1's cell: the decoder's at the last encoder step), and gives
+the gates' gradient, the raw head's and the carried ``dh`` (kept where the
+agent is absent) and ``dc``.  Then once a rollout: ``dx = dgates @
 W_ih^T`` for each cell's steps (two ``torch.mm``), ``fused_train_in_backward``
 (both relu masks, in place), and each weight's gradient as one product over
 all its steps; the biases of the gates, the embedding and Hidden2Normal are
@@ -58,8 +61,9 @@ Each kernel (``csrc/fused_train.cu``) has its plain version here, which
 the wrapper runs for tensors on the CPU, so that the CPU tests exercise
 this Function whole, hand-written backward included; on the card the
 wrapper launches the kernel or raises.  The widths (embedding, pool,
-hidden) are taken at run time.  Each wrapper counts its launches in its
-``launches`` attribute (``trainers/graphs.COUNTERS``).
+hidden) are taken at run time, the hidden width up to ``MAX_HIDDEN``.
+Each wrapper counts its launches in its ``launches`` attribute
+(``trainers/graphs.COUNTERS``).
 """
 
 import math
@@ -87,17 +91,18 @@ def fused_train_in_plain(obs1, obs2, present1, present2, grid, w_emb, b_emb, w_g
     mask.copy_(m.reshape(-1))
 
 
-def fused_train_cell_plain(gates, xh, c, mask, obs2, w_h2n, b_h2n, xh_next, c_next, act, tc,
+def fused_train_cell_plain(xh, w_cell, c, mask, obs2, w_h2n, b_h2n, xh_next, c_next, act, tc,
                            sig, rel, pred, chain=None) -> None:
-    """Step 4 of a rollout, written into its outputs: ``xh_next``'s h part
-    and ones column, ``c_next``, ``act`` [R, 4H] (sigmoid i, f, tanh g,
+    """Step 3 of a rollout, the gates ``xh @ w_cell`` (``w_cell`` [ld, 4H],
+    bias in the ones column's row) and then, written into its outputs:
+    ``xh_next``'s h part and ones column, ``c_next``, ``act`` [R, 4H] (sigmoid i, f, tanh g,
     sigmoid o), ``tc`` (tanh c'), ``sig`` [R, 3] (the head's sigmoids),
     ``rel`` [R, 5], ``pred`` [R, 2]; ``chain``: (positions [S, A, 2],
     validity [S, A]) whose primary lane takes the step's, or None."""
     hidden = c.shape[1]
     x_width = xh.shape[1] - hidden - 1
     h = xh[:, x_width:x_width + hidden]
-    i, f, g, o = gates.chunk(4, dim=1)
+    i, f, g, o = (xh @ w_cell).chunk(4, dim=1)
     si, sf, tg, so = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
     c_new = sf * c + si * tg
     t = torch.tanh(c_new)
@@ -121,13 +126,14 @@ def fused_train_cell_plain(gates, xh, c, mask, obs2, w_h2n, b_h2n, xh_next, c_ne
         chain_mask[:, 0] = mask.view(-1, agents)[:, 0]
 
 
-def fused_train_cell_backward_plain(d_rel, d_pred, mask, sig, act, tc, c, w_h2n, dh_gemm, dh,
-                                    dc, dg, draw) -> None:
+def fused_train_cell_backward_plain(d_rel, d_pred, mask, sig, act, tc, c, w_h2n, dg_next,
+                                    w_hh_next, dh, dc, dg, draw) -> None:
     """One step of the backward: ``dg`` [R, 4H] (the gates' gradient) and
     ``draw`` [R, 5] (the raw head's) from the step's ``d_rel`` [R, 5],
-    ``d_pred`` [R, 2] (None: zero) and the carried ``dh`` (+ ``dh_gemm``
-    unless None) and ``dc``, which are updated in place for the step
-    before."""
+    ``d_pred`` [R, 2] (None: zero) and the carried ``dh`` (+ ``dg_next @
+    w_hh_next.t()``, step g + 1's gates' gradient [R, 4H] through its
+    cell's ``W_hh`` [H, 4H], unless both are None) and ``dc``, which are
+    updated in place for the step before."""
     m = mask[:, None]
     dn = d_rel.clone()
     if d_pred is not None:
@@ -137,7 +143,7 @@ def fused_train_cell_backward_plain(d_rel, d_pred, mask, sig, act, tc, c, w_h2n,
     dr = torch.cat([dn[:, :2], dn[:, 2:4] * 0.2 * s[:, :2] * (1 - s[:, :2]),
                     dn[:, 4:] * 0.7 * s[:, 2:] * (1 - s[:, 2:])], dim=1)
     draw.copy_(dr)
-    dh_in = dh if dh_gemm is None else dh + dh_gemm
+    dh_in = dh if dg_next is None else dh + dg_next @ w_hh_next.t()
     si, sf, tg, so = act.chunk(4, dim=1)
     dhn = (dh_in + dr @ w_h2n.t()) * m
     dcn = dc * m + dhn * so * (1 - tc * tc)
@@ -218,6 +224,11 @@ def _check(name, x, shape, dtype, device, contiguous=True):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_aligned(name, x) -> None:
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name} must start on 16 bytes (the kernel copies it 16 bytes at once)")
+
+
 def _check_rows(rows: int) -> None:
     if rows < 1:
         raise ValueError(f"the kernels take one row or more, got {rows}")
@@ -261,6 +272,61 @@ def in_columns_per_lane(rows: int) -> int:
     return next((c for most, c in IN_SPLITS if rows <= most), IN_COLUMNS_PER_LANE[-1])
 
 
+# the cell kernels' widest hidden state: a cluster of at most 8 blocks of
+# 32 units each forms a row tile's gates; and the longest row of xh ([x |
+# h | 1]) the forward kernel takes, its tile's rows kept in shared memory
+# (``csrc/fused_train.cu``); ``LSTM.fused_train`` keeps a wider model on
+# the grid route
+MAX_HIDDEN = 256
+MAX_ROW = 2048
+# the rows of a cell kernel's tile (a block: the tile's rows by 16 hidden
+# units; 32 units above 128, which take 8 rows): (most rows, tile rows) in
+# order, and above them the last, for the forward and the backward; the
+# fastest on an H100 at 15, 64 and 8,192 rows (chip_smoke.py phase 6c (a)
+# times each)
+CELL_TILE_ROWS = (4, 8, 16)
+CELL_SPLITS = {"forward": ((32, 4), (2048, 8)), "backward": ((64, 4), (2048, 8))}
+
+
+def cell_units(hidden: int) -> int:
+    """The hidden units of a slice of the cell kernels: a block's, a
+    cluster of ``ceil(hidden / units)`` blocks forming a row tile's gates."""
+    return 16 if hidden <= 128 else 32
+
+
+def cell_pack(w_cell: torch.Tensor, hidden: int) -> torch.Tensor:
+    """``w_cell`` [ld, 4H] as ``fused_train_cell``'s kernel reads it: [S, ld,
+    4, U], slice s's gate columns of each row in a run (``cell_units``: U
+    units a slice, S slices, the units past H zero), so that a slice's rows
+    are one contiguous block.  Made once a rollout for each cell."""
+    ld, units = w_cell.shape[0], cell_units(hidden)
+    slices = -(-hidden // units)
+    with torch.no_grad():
+        w = w_cell.reshape(ld, 4, hidden)
+        if slices * units != hidden:
+            w = torch.nn.functional.pad(w, (0, slices * units - hidden))
+        return w.view(ld, 4, slices, units).permute(2, 0, 1, 3).contiguous()
+
+
+def cell_tile_rows(rows: int, hidden: int, kernel: str = "forward") -> int:
+    """The rows of a tile of ``fused_train_cell`` (``kernel`` "forward") or
+    its backward at ``rows`` rows of ``hidden`` units (``CELL_SPLITS``)."""
+    if hidden > 128:
+        return 8
+    return next((t for most, t in CELL_SPLITS[kernel] if rows <= most), CELL_TILE_ROWS[-1])
+
+
+def takes_widths(input_width: int, hidden: int) -> bool:
+    """True where the cell kernels take a cell of ``input_width`` inputs (x)
+    and ``hidden`` units."""
+    return 1 <= hidden <= MAX_HIDDEN and input_width + hidden + 1 <= MAX_ROW
+
+
+def _check_hidden(hidden: int) -> None:
+    if not 1 <= hidden <= MAX_HIDDEN:
+        raise ValueError(f"the cell kernels take 1 to {MAX_HIDDEN} hidden units, got {hidden}")
+
+
 # ------------------------------------------------------------------ wrappers
 def fused_train_in(obs1, obs2, present1, present2, grid, w_emb, b_emb, w_grid, b_grid, xh, v4,
                    mask) -> None:
@@ -296,22 +362,25 @@ def fused_train_in(obs1, obs2, present1, present2, grid, w_emb, b_emb, w_grid, b
 fused_train_in.launches = 0
 
 
-def fused_train_cell(gates, xh, c, mask, obs2, w_h2n, b_h2n, xh_next, c_next, act, tc, sig,
-                     rel, pred, chain: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                     ) -> None:
-    """Step 4 of the rollout (``fused_train_cell_plain``): ``gates`` [R, 4H]
-    (bias included), ``xh``/``xh_next`` [R, ld] (h at columns ld - H - 1 ..
-    ld - 2), ``c``/``c_next``/``tc`` [R, H], ``mask`` [R] bool, ``obs2`` [R,
-    2], ``w_h2n`` [H, 5], ``b_h2n`` [5], ``act`` [R, 4H], ``sig`` [R, 3],
-    ``rel`` [R, 5], ``pred`` [R, 2], ``chain`` (positions [S, A, 2], validity
-    [S, A] bool) or None.  The kernel on the card, the plain version on the
-    CPU."""
+def fused_train_cell(xh, w_cell, c, mask, obs2, w_h2n, b_h2n, xh_next, c_next, act, tc, sig,
+                     rel, pred, chain: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                     w_pack: Optional[torch.Tensor] = None) -> None:
+    """Step 3 of the rollout (``fused_train_cell_plain``): ``xh``/``xh_next``
+    [R, ld] (h at columns ld - H - 1 .. ld - 2, ones last), ``w_cell`` [ld,
+    4H] (``cell_weights``), ``c``/``c_next``/``tc`` [R, H] (H at most
+    ``MAX_HIDDEN``), ``mask`` [R] bool, ``obs2`` [R, 2], ``w_h2n`` [H, 5],
+    ``b_h2n`` [5], ``act`` [R, 4H], ``sig`` [R, 3], ``rel`` [R, 5], ``pred``
+    [R, 2], ``chain`` (positions [S, A, 2], validity [S, A] bool) or None,
+    ``w_pack`` ``cell_pack(w_cell, H)`` (the kernel's weights: on the card
+    only).  The kernel on the card (the gate product formed inside it, from
+    ``w_pack``), the plain version on the CPU."""
     rows, hidden = c.shape
     ld = xh.shape[1]
     dev, dt = c.device, c.dtype
     _check_rows(rows)
+    _check_hidden(hidden)
     for name, x, shape, dtype in (
-            ("gates", gates, (rows, 4 * hidden), dt), ("xh", xh, (rows, ld), dt),
+            ("xh", xh, (rows, ld), dt), ("w_cell", w_cell, (ld, 4 * hidden), dt),
             ("c", c, (rows, hidden), dt), ("mask", mask, (rows,), torch.bool),
             ("obs2", obs2, (rows, 2), dt), ("w_h2n", w_h2n, (hidden, 5), dt),
             ("b_h2n", b_h2n, (5,), dt), ("xh_next", xh_next, (rows, ld), dt),
@@ -319,8 +388,9 @@ def fused_train_cell(gates, xh, c, mask, obs2, w_h2n, b_h2n, xh_next, c_next, ac
             ("tc", tc, (rows, hidden), dt), ("sig", sig, (rows, 3), dt),
             ("rel", rel, (rows, 5), dt), ("pred", pred, (rows, 2), dt)):
         _check(name, x, shape, dtype, dev)
-    if ld <= hidden + 1:
-        raise ValueError(f"xh's rows ({ld}) must be wider than h and the ones column")
+    if not hidden + 1 < ld <= MAX_ROW:
+        raise ValueError(f"xh's rows ({ld}) must be wider than h and the ones column and at "
+                         f"most {MAX_ROW}")
     agents = 1
     if chain is not None:
         agents = chain[0].shape[1]
@@ -329,43 +399,57 @@ def fused_train_cell(gates, xh, c, mask, obs2, w_h2n, b_h2n, xh_next, c_next, ac
         _check("chain positions", chain[0], (rows // agents, agents, 2), dt, dev)
         _check("chain validity", chain[1], (rows // agents, agents), torch.bool, dev)
     if not _kernel_device(c):
-        return fused_train_cell_plain(gates, xh, c, mask, obs2, w_h2n, b_h2n, xh_next, c_next,
+        return fused_train_cell_plain(xh, w_cell, c, mask, obs2, w_h2n, b_h2n, xh_next, c_next,
                                       act, tc, sig, rel, pred, chain)
+    units = cell_units(hidden)
+    _check("w_pack", w_pack, (-(-hidden // units), ld, 4, units), dt, dev)
+    _check_aligned("w_pack", w_pack)
     chain_xy, chain_mask = chain if chain is not None else (None, None)
-    _launch("dlstm_train_cell", gates, xh, c, mask, obs2, w_h2n, b_h2n, xh_next, c_next, act,
-            tc, sig, rel, pred, chain_xy, chain_mask, rows, agents, hidden, ld)
+    _launch("dlstm_train_cell", xh, w_pack, c, mask, obs2, w_h2n, b_h2n, xh_next, c_next, act,
+            tc, sig, rel, pred, chain_xy, chain_mask, rows, agents, hidden, ld, units,
+            cell_tile_rows(rows, hidden))
     fused_train_cell.launches += 1
 
 
 fused_train_cell.launches = 0
 
 
-def fused_train_cell_backward(d_rel, d_pred, mask, sig, act, tc, c, w_h2n, dh_gemm, dh, dc, dg,
-                              draw) -> None:
+def fused_train_cell_backward(d_rel, d_pred, mask, sig, act, tc, c, w_h2n, dg_next, w_hh_next,
+                              dh, dc, dg, draw) -> None:
     """One step of the backward (``fused_train_cell_backward_plain``):
     ``d_rel`` [R, 5], ``d_pred`` [R, 2] or None, ``mask`` [R] bool, ``sig``
-    [R, 3], ``act`` [R, 4H], ``tc``/``c`` [R, H], ``w_h2n`` [H, 5],
-    ``dh_gemm`` [R, H] or None; updates ``dh`` and ``dc`` [R, H] in place,
-    writes ``dg`` [R, 4H] and ``draw`` [R, 5].  The kernel on the card, the
-    plain version on the CPU."""
+    [R, 3], ``act`` [R, 4H], ``tc``/``c`` [R, H] (H at most ``MAX_HIDDEN``),
+    ``w_h2n`` [H, 5], ``dg_next`` [R, 4H] and ``w_hh_next`` [H, 4H] (step g
+    + 1's gates' gradient and its cell's ``W_hh`` rows, a view of its
+    ``w_cell``) or both None; updates ``dh`` and ``dc`` [R, H] in place,
+    writes ``dg`` [R, 4H] and ``draw`` [R, 5].  The kernel on the card (the
+    ``dh`` product formed inside it), the plain version on the CPU."""
     rows, hidden = c.shape
     dev, dt = c.device, c.dtype
     _check_rows(rows)
+    _check_hidden(hidden)
+    if (dg_next is None) != (w_hh_next is None):
+        raise ValueError("dg_next and w_hh_next go together: both tensors or both None")
     for name, x, shape, dtype in (
             ("d_rel", d_rel, (rows, 5), dt), ("d_pred", d_pred, (rows, 2), dt),
             ("mask", mask, (rows,), torch.bool), ("sig", sig, (rows, 3), dt),
             ("act", act, (rows, 4 * hidden), dt), ("tc", tc, (rows, hidden), dt),
             ("c", c, (rows, hidden), dt), ("w_h2n", w_h2n, (hidden, 5), dt),
-            ("dh_gemm", dh_gemm, (rows, hidden), dt), ("dh", dh, (rows, hidden), dt),
+            ("dg_next", dg_next, (rows, 4 * hidden), dt),
+            ("w_hh_next", w_hh_next, (hidden, 4 * hidden), dt), ("dh", dh, (rows, hidden), dt),
             ("dc", dc, (rows, hidden), dt), ("dg", dg, (rows, 4 * hidden), dt),
             ("draw", draw, (rows, 5), dt)):
-        if x is not None or name not in ("d_pred", "dh_gemm"):
+        if x is not None or name not in ("d_pred", "dg_next", "w_hh_next"):
             _check(name, x, shape, dtype, dev)
     if not _kernel_device(c):
         return fused_train_cell_backward_plain(d_rel, d_pred, mask, sig, act, tc, c, w_h2n,
-                                               dh_gemm, dh, dc, dg, draw)
-    _launch("dlstm_train_cell_backward", d_rel, d_pred, mask, sig, act, tc, c, w_h2n, dh_gemm,
-            dh, dc, dg, draw, rows, hidden)
+                                               dg_next, w_hh_next, dh, dc, dg, draw)
+    for name, x in (("dg_next", dg_next), ("w_hh_next", w_hh_next)):
+        if x is not None:
+            _check_aligned(name, x)
+    _launch("dlstm_train_cell_backward", d_rel, d_pred, mask, sig, act, tc, c, w_h2n, dg_next,
+            w_hh_next, dh, dc, dg, draw, rows, hidden, cell_units(hidden),
+            cell_tile_rows(rows, hidden, "backward"))
     fused_train_cell_backward.launches += 1
 
 
@@ -467,6 +551,9 @@ class FusedTrainRollout(torch.autograd.Function):
         x_width = lin + 2 + pool
         ld = x_width + hidden + 1
         kw = dict(device=observed.device, dtype=w_emb.dtype)
+        # each cell's weights as the forward kernel reads them, once a rollout
+        packs = ((cell_pack(w_enc, hidden), cell_pack(w_dec, hidden))
+                 if _kernel_device(w_enc) else (None, None))
         xh = torch.empty((steps + 1, rows, ld), **kw)  # each step's [x | h | 1]
         xh[0, :, x_width:x_width + hidden].zero_()
         c = torch.empty((steps + 1, rows, hidden), **kw)
@@ -504,10 +591,11 @@ class FusedTrainRollout(torch.autograd.Function):
                 fused_train_in(*frames, grids[-1], w_emb, b_emb, w_grid, b_grid, xh[g], v4[g],
                                valid[g].view(rows))
             slot = g - te + 2
-            fused_train_cell(xh[g] @ w_cell, xh[g], c[g], valid[g].view(rows),
+            fused_train_cell(xh[g], w_cell, c[g], valid[g].view(rows),
                              obs2.view(rows, 2), w_h2n, b_h2n, xh[g + 1], c[g + 1], act[g],
                              tc[g], sig[g], rel[g].view(rows, 5), pred[g].view(rows, 2),
-                             (chain[slot], chain_mask[slot]) if 0 <= slot <= n_dec else None)
+                             (chain[slot], chain_mask[slot]) if 0 <= slot <= n_dec else None,
+                             packs[g >= te])
         ctx.mark_non_differentiable(valid)
         ctx.save_for_backward(w_enc, w_dec, w_h2n, valid)
         ctx.stacks = (xh, c, act, tc, sig, v4, grids)
@@ -526,14 +614,14 @@ class FusedTrainRollout(torch.autograd.Function):
         dh, dc = torch.zeros((2, rows, hidden), **kw)
         dg = torch.empty((steps, rows, 4 * hidden), **kw)
         draw = torch.empty((steps, rows, 5), **kw)
-        dh_gemm = None
         for g in reversed(range(steps)):
+            # step g + 1's gates' gradient through its cell's W_hh (the
+            # decoder's at the last encoder step), formed inside the kernel
+            nxt = (None, None) if g + 1 == steps else (
+                dg[g + 1], (w_enc if g + 1 < te else w_dec)[x_width:x_width + hidden])
             fused_train_cell_backward(d_rel[g], None if d_pred is None else d_pred[g],
                                       valid[g].view(rows), sig[g], act[g], tc[g], c[g], w_h2n,
-                                      dh_gemm, dh, dc, dg[g], draw[g])
-            if g:
-                w_cell = w_enc if g < te else w_dec
-                dh_gemm = dg[g] @ w_cell[x_width:x_width + hidden].t()
+                                      *nxt, dh, dc, dg[g], draw[g])
         n, ld, gates = steps * rows, xh.shape[2], 4 * hidden
         dx = torch.empty((steps, rows, x_width), **kw)
         for cell, (lo, hi) in ((w_enc, (0, te)), (w_dec, (te, steps))):
