@@ -99,7 +99,15 @@ PyTorch built for CUDA (no jax needed).  Phases, one line each:
    and 8,192 rows on grids with 0, 14, 62 (A = 32) and 288 entries a row
    not zero, -0.0 in others, its time a launch beside its bound at each,
    at each split of its pool columns, and ``torch.addmm``'s for the grid
-   embedding's product alone; (b) the route's loss and every leaf's gradient against
+   embedding's product alone; ``fused_train_in_backward`` bit-equal to its
+   plain version (NaN, -0.0 and +0.0 in ``xh``) also at a width that is no
+   multiple of 4 and at 13 rows, its bound the bytes the function needs
+   (``xh``'s x part read, the zeroed elements written) beside the bytes it
+   moves, and ``threshold_backward``'s device time and time a call;
+   ``fused_train_loss`` within 1e-6 of its plain version also with every
+   scene masked (all zero), one scene, 35 entries and P = 1, its distance
+   to the plain version in f64, at each block size; each kernel run twice
+   to the same bits; (b) the route's loss and every leaf's gradient against
    the grid route's on one batch (defaults, a collision term,
    ``start_length`` 3), 1e-5 of each leaf's largest (the loss: of its own
    magnitude or the batch size), each run's launches read exactly; (c) one
@@ -376,6 +384,17 @@ TRAIN_CELL_EDGES = ((3, 5, 128), (TRAIN_BATCH, 8, 40), (TRAIN_BATCH, 8, 200))
 # = 8 and at A = 32, every entry (-0.0 in some of the zero slots)
 TRAIN_IN_SHAPES = ((1, 8 * TRAIN_BATCH), (8, 8 * 8 * TRAIN_BATCH), (1, 8192))
 TRAIN_IN_GRIDS = ((8, 0), (8, 14), (32, 62), (8, 288))
+# fused_train_loss's further cases, (scenes, agents, steps P, scenes
+# masked): every scene masked (count 0, loss 0, dvals 0), one scene, 35
+# entries (no multiple of a warp), P = 1; its block sizes timed at
+# TRAIN_KERNEL_SHAPES (``fused_train.loss_threads`` takes the multiple of 32
+# at or above the entries, at most 1,024)
+TRAIN_LOSS_EDGES = ((8, 8, 12, "all"), (1, 8, 12, "none"), (5, 3, 7, "third"),
+                    (3, 4, 1, "third"))
+LOSS_TIMED_THREADS = (32, 64, 96, 128, 256, 512, 1024)
+# fused_train_in_backward's further cases, (rows, width, ld): a width that
+# is no multiple of 4 (the float path), rows that fill no tile
+TRAIN_IN_BACKWARD_EDGES = ((19 * 8 * TRAIN_BATCH, 317, 449), (13, 320, 449))
 TRAIN_KERNEL_RTOL = 1e-6
 TRAIN_KERNEL_REPS = 50  # launches per timed or profiled window
 LOST_WINDOWS = 4  # traces of a profiled window that holds no device event
@@ -1157,27 +1176,55 @@ def train_kernel_case(name, rng, s, a, dev, params) -> tuple:
     def f(*shape):
         return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
 
-    def b(*shape):
-        return torch.from_numpy(rng.random(shape) > 0.2).to(dev)
-
     if name == "fused_train_in":  # one step, 2 (A - 1) entries of a row not zero
         return train_in_case(rng, 1, s, a, 2 * (a - 1), dev, params)[:3]
     if name in ("fused_train_cell", "fused_train_cell_backward"):
         return train_cell_case(name, rng, s, a, dev, params)[:3]
     if name == "fused_train_in_backward":
-        n = 19 * r
-        return (f(n, x_width), f(n, ld)), (0,), 3 * 4 * n * x_width
-    # the loss: the trainer's 12 predicted steps of the primaries, sigmas
-    # and rho in the head's ranges, one scene in eight padded
-    p, rel = 12, f(19, s, a, 5)
-    rel[..., 2:4] = 0.01 + 0.2 * torch.sigmoid(rel[..., 2:4])
-    rel[..., 4] = 0.7 * torch.sigmoid(rel[..., 4])
-    scenes = torch.arange(s, device=dev) % 8 != 7
+        return in_backward_case(rng, 19 * r, x_width, ld, dev)
     if name == "fused_train_loss":
-        args = (rel, 0.1 * f(p, s, 2), scenes, f(), f(), f(p, s, 5))
-        return args, (3, 4, 5), 4 * (p * s * 7 + 2 + p * s * 5) + s
+        return loss_case(rng, s, a, 12, "eighth", dev)
+    p = 12
     args = (8.0 + f(), f(p, s, 5), 60.0 + f(), f(19, s, a, 5))
     return args, (3,), 4 * (2 + p * s * 5 + 19 * r * 5)
+
+
+def in_backward_case(rng, rows, width, ld, dev) -> tuple:
+    """``fused_train_in_backward``'s arguments, ``dx`` [rows, width] and
+    ``xh`` [rows, ld], drawn from ``rng``: ``xh`` with NaN, -0.0 and +0.0 in
+    some places (none of them positive), ``dx`` with -0.0 in some; the
+    index of the argument it writes; the bytes the function needs on these
+    inputs (``xh``'s first ``width`` columns read, the elements it zeroes
+    written: ``dx``'s other elements stay as they are)."""
+    dx = rng.normal(size=(rows, width)).astype(np.float32)
+    dx[rng.random(dx.shape) < 0.02] = -0.0
+    xh = rng.normal(size=(rows, ld)).astype(np.float32)
+    for value in (np.nan, -0.0, 0.0):
+        xh[rng.random(xh.shape) < 0.02] = value
+    zeroed = int(np.count_nonzero(~(xh[:, :width] > 0)))
+    return ((torch.from_numpy(dx).to(dev), torch.from_numpy(xh).to(dev)), (0,),
+            4 * rows * width + 4 * zeroed)
+
+
+def loss_case(rng, s, a, p, masked, dev) -> tuple:
+    """``fused_train_loss``'s arguments for the primaries' last ``p`` of 19
+    steps of [S, A] normals drawn from ``rng`` (sigmas and rho in the
+    head's ranges, targets at 0.1 of a unit normal), ``masked`` scenes
+    padded ("eighth": one in eight; "third": one in three; "all"; "none"),
+    its outputs filled at random; the indices of the arguments it writes;
+    its bytes (each input read once, each output written once)."""
+
+    def f(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    rel = f(19, s, a, 5)
+    rel[..., 2:4] = 0.01 + 0.2 * torch.sigmoid(rel[..., 2:4])
+    rel[..., 4] = 0.7 * torch.sigmoid(rel[..., 4])
+    scene = torch.arange(s, device=dev)
+    scenes = {"eighth": scene % 8 != 7, "third": scene % 3 != 2, "all": scene < 0,
+              "none": scene >= 0}[masked]
+    args = (rel, 0.1 * f(p, s, 2), scenes, f(), f(), f(p, s, 5))
+    return args, (3, 4, 5), 4 * (p * s * 7 + 2 + p * s * 5) + s
 
 
 def train_cell_case(name, rng, s, a, dev, params) -> tuple:
@@ -1444,6 +1491,136 @@ def train_cell_figures(name, rng, dev, params, card) -> dict:
     return {**row, "cases": cases, "split": split}
 
 
+def bits_equal(got, want) -> bool:
+    """The float32 tensors ``got`` and ``want`` hold the same bits, NaN and
+    the sign of zero included."""
+    return all(torch.equal(g.view(torch.int32), w.view(torch.int32)) for g, w in zip(got, want))
+
+
+def train_in_backward_figures(rng, dev, params, card) -> dict:
+    """Phase 6c (a) for ``fused_train_in_backward``: the kernel bit-equal to
+    its plain version (a selection), run twice to the same bits, on a
+    rollout's 19 steps of rows at ``TRAIN_KERNEL_SHAPES`` and at
+    ``TRAIN_IN_BACKWARD_EDGES``; at the shapes its device us a launch beside
+    its bound (the bytes the function needs, ``in_backward_case``) and the
+    share of the bytes the kernel moves (``dx`` read and written whole,
+    ``xh``'s x part read: ``moved_share``), and the one PyTorch call of the
+    same function (up to NaN in ``xh``), ``threshold_backward``: its device
+    us a launch and its us a call with the host's.  Returns the kernel
+    table's row at the train step's 64 rows (1,216 rows a rollout), with
+    ``cases``."""
+    from trajnetplusplusbaselines_torch.ops.cuda import fused_train
+
+    wrapper, plain = fused_train.fused_train_in_backward, fused_train.fused_train_in_backward_plain
+    kernel = "fused_train_in_backward_kernel"
+    lin = params["input_embedding"]["linear"]["w"].shape[1]
+    pool = params["pool"]["embedding"][0]["w"].shape[1]
+    hidden = params["hidden2normal"]["linear"]["w"].shape[0]
+    x_width = lin + 2 + pool
+    row, cases = {"max_abs_err": 0.0, "max_rel_err": 0.0}, []
+    shapes = [(19 * s * a, x_width, x_width + hidden + 1) for s, a in TRAIN_KERNEL_SHAPES]
+    for rows, width, ld in shapes + list(TRAIN_IN_BACKWARD_EDGES):
+        args, writes, nbytes = in_backward_case(rng, rows, width, ld, dev)
+        runs = [run_train_kernel(wrapper, args, writes) for _ in range(2)]
+        want = run_train_kernel(plain, args, writes)
+        torch.cuda.synchronize()
+        if not (bits_equal(runs[0], want) and bits_equal(runs[1], want)):
+            raise AssertionError(f"fused_train_in_backward at {rows} x {width} (ld {ld}): not "
+                                 f"the plain version's bits")
+        case = {"rows": rows, "width": width, "ld": ld, "bits_equal": True, "bytes": nbytes,
+                "bound_us": 1e6 * nbytes / PEAK_BYTES, "moved_bytes": 3 * 4 * rows * width}
+        cases.append(case)
+        if (rows, width, ld) not in shapes:
+            continue
+        dx, xh = [v.clone() for v in args]
+        x = xh[:, :width]
+        case.update(
+            device_us=1e3 * kernel_ms_per_launch(lambda: wrapper(dx, xh), TRAIN_KERNEL_REPS,
+                                                 kernel),
+            library_us=1e3 * time_ms(lambda: torch.ops.aten.threshold_backward(dx, x, 0.0),
+                                     reps=TRAIN_KERNEL_REPS),
+            library_device_us=1e3 * kernel_ms_per_launch(
+                lambda: torch.ops.aten.threshold_backward(dx, x, 0.0), TRAIN_KERNEL_REPS,
+                "threshold_kernel"))
+        case["bound_share"] = case["bound_us"] / case["device_us"]
+        case["moved_share"] = 1e6 * case["moved_bytes"] / PEAK_BYTES / case["device_us"]
+        if (rows, width, ld) == shapes[0]:
+            s, a = TRAIN_KERNEL_SHAPES[0]
+            row.update(rows=s * a, rollout_rows=rows, bytes=nbytes,
+                       bound_ms=case["bound_us"] / 1e3, bound_by="bytes",
+                       ms=time_ms(lambda: wrapper(dx, xh), reps=TRAIN_KERNEL_REPS),
+                       plain_ms=time_ms(lambda: plain(dx, xh), reps=TRAIN_KERNEL_REPS),
+                       device_ms=case["device_us"] / 1e3, bound_share=case["bound_share"],
+                       library_ms=case["library_us"] / 1e3,
+                       library_device_ms=case["library_device_us"] / 1e3)
+    for case in cases:
+        say("fused_train_in_backward_case", card=card, **case)
+    return {**row, "cases": cases}
+
+
+def train_loss_figures(rng, dev, card) -> dict:
+    """Phase 6c (a) for ``fused_train_loss``: the kernel within
+    ``TRAIN_KERNEL_RTOL`` of its plain version (``held_to_plain``), run
+    twice to the same bits, at ``TRAIN_KERNEL_SHAPES`` (12 steps, one scene
+    in eight padded) and ``TRAIN_LOSS_EDGES`` (every scene masked: loss,
+    count and dvals all zero); each case's distance of the kernel and of
+    the plain version in f32 to the plain version run in f64
+    (``kernel_vs_f64``, ``plain_vs_f64``); at the shapes its device us a
+    launch beside its bound, at each of ``LOSS_TIMED_THREADS`` threads
+    (``split``).  Returns the kernel table's row at the train step's 64
+    rows (96 entries), with ``cases`` and ``split``."""
+    from trajnetplusplusbaselines_torch.ops.cuda import fused_train
+
+    wrapper, plain = fused_train.fused_train_loss, fused_train.fused_train_loss_plain
+    kernel = "fused_train_loss_kernel"
+    row, cases, split = {"max_abs_err": 0.0, "max_rel_err": 0.0}, [], []
+    shapes = [(s, a, 12, "eighth") for s, a in TRAIN_KERNEL_SHAPES]
+    for s, a, p, masked in shapes + list(TRAIN_LOSS_EDGES):
+        args, writes, nbytes = loss_case(rng, s, a, p, masked, dev)
+        runs = [run_train_kernel(wrapper, args, writes) for _ in range(2)]
+        want = run_train_kernel(plain, args, writes)
+        wide = run_train_kernel(plain, [v.double() if v.is_floating_point() else v
+                                        for v in args], writes)
+        torch.cuda.synchronize()
+        label = f"fused_train_loss at S={s} A={a} P={p}, {masked} masked"
+        if not bits_equal(runs[0], runs[1]):
+            raise AssertionError(f"{label}: two runs differ")
+        errs = {"max_abs_err": 0.0, "max_rel_err": 0.0}
+        held_to_plain(label, runs[0], want, errs)
+        if masked == "all" and any(bool(x.any()) for x in runs[0]):
+            raise AssertionError(f"{label}: the loss, the count and dvals must be zero")
+        for key in errs:
+            row[key] = max(row[key], errs[key])
+        case = {"scenes": s, "agents": a, "steps": p, "masked": masked, "entries": p * s,
+                "threads": fused_train.loss_threads(p * s), **errs, "bytes": nbytes,
+                "bound_us": 1e6 * nbytes / PEAK_BYTES,
+                "kernel_vs_f64": relative_errors(runs[0], wide),
+                "plain_vs_f64": relative_errors(want, wide)}
+        cases.append(case)
+        if (s, a, p, masked) not in shapes:
+            continue
+        copies = [v.clone() for v in args]
+        case["device_us"] = 1e3 * kernel_ms_per_launch(lambda: wrapper(*copies),
+                                                       TRAIN_KERNEL_REPS, kernel)
+        case["bound_share"] = case["bound_us"] / case["device_us"]
+        for threads in LOSS_TIMED_THREADS:
+            with mock.patch.object(fused_train, "loss_threads", lambda e, t=threads: t):
+                split.append({"entries": p * s, "threads": threads,
+                              "device_us": 1e3 * kernel_ms_per_launch(
+                                  lambda: wrapper(*copies), TRAIN_KERNEL_REPS, kernel)})
+        if (s, a, p, masked) == shapes[0]:
+            row.update(rows=s * a, entries=p * s, bytes=nbytes, bound_ms=case["bound_us"] / 1e3,
+                       bound_by="bytes",
+                       ms=time_ms(lambda: wrapper(*copies), reps=TRAIN_KERNEL_REPS),
+                       plain_ms=time_ms(lambda: plain(*copies), reps=TRAIN_KERNEL_REPS),
+                       device_ms=case["device_us"] / 1e3, bound_share=case["bound_share"],
+                       library_ms=None)
+    for case in cases:
+        say("fused_train_loss_case", card=card, **case)
+    say("fused_train_loss_split", card=card, split=split)
+    return {**row, "cases": cases, "split": split}
+
+
 def run_train_kernel(fn, args, writes) -> list:
     """``fn`` on copies of ``args``; the written tensors, flat."""
     copies = [tuple(x.clone() for x in a) if isinstance(a, tuple) else a.clone()
@@ -1459,9 +1636,11 @@ def fused_train_phase(dev, rng, card) -> dict:
     ``TRAIN_KERNEL_SHAPES``, within ``TRAIN_KERNEL_RTOL`` of each output's
     largest magnitude (masks equal), with its time a call and a launch at
     the train step's 64 rows beside its bound (its bytes at the memory's
-    rate), the plain version's time and, for the relu masks, the one
-    PyTorch call of the same function (``threshold_backward``);
-    ``fused_train_in`` at ``TRAIN_IN_SHAPES`` on ``TRAIN_IN_GRIDS``, its
+    rate) and the plain version's time; the relu masks bit-equal to their
+    plain version at ``TRAIN_IN_BACKWARD_EDGES`` too, beside the one PyTorch call of the same function (``threshold_backward``,
+    ``train_in_backward_figures``); the loss at ``TRAIN_LOSS_EDGES`` too,
+    its distance to the plain version in f64, each block size timed
+    (``train_loss_figures``); ``fused_train_in`` at ``TRAIN_IN_SHAPES`` on ``TRAIN_IN_GRIDS``, its
     splits timed, beside ``torch.addmm`` (``train_in_figures``); the two
     cell kernels also at ``TRAIN_CELL_EDGES``, each case's bound by bytes
     or operations, its tiles timed, beside the library call of the product
@@ -1495,10 +1674,17 @@ def fused_train_phase(dev, rng, card) -> dict:
 
     # (a) each kernel against its plain version
     kernels = {}
+    figures = {"fused_train_in": lambda: train_in_figures(rng, dev, params, card),
+               "fused_train_cell": lambda: train_cell_figures("fused_train_cell", rng, dev,
+                                                              params, card),
+               "fused_train_cell_backward": lambda: train_cell_figures(
+                   "fused_train_cell_backward", rng, dev, params, card),
+               "fused_train_in_backward": lambda: train_in_backward_figures(rng, dev, params,
+                                                                            card),
+               "fused_train_loss": lambda: train_loss_figures(rng, dev, card)}
     for name in TRAIN_KERNELS:
-        if name in ("fused_train_in", "fused_train_cell", "fused_train_cell_backward"):
-            kernels[name] = (train_in_figures(rng, dev, params, card) if name == "fused_train_in"
-                             else train_cell_figures(name, rng, dev, params, card))
+        if name in figures:
+            kernels[name] = figures[name]()
             say("fused_train_kernel", kernel=name, card=card,
                 shapes=TRAIN_IN_SHAPES if name == "fused_train_in" else TRAIN_KERNEL_SHAPES,
                 **{k: v for k, v in kernels[name].items() if k not in ("cases", "split")})
@@ -1523,12 +1709,6 @@ def fused_train_phase(dev, rng, card) -> dict:
                 device_ms=kernel_ms_per_launch(lambda: wrapper(*copies), TRAIN_KERNEL_REPS,
                                                f"{name}_kernel"),
                 library_ms=None)
-            if name == "fused_train_in_backward":
-                dx, xh = copies
-                x = xh[:, :dx.shape[1]]
-                row["library_ms"] = time_ms(
-                    lambda: torch.ops.aten.threshold_backward(dx, x, 0.0),
-                    reps=TRAIN_KERNEL_REPS)
             row["bound_share"] = row["bound_ms"] / row["device_ms"]
         kernels[name] = row
         say("fused_train_kernel", kernel=name, shapes=TRAIN_KERNEL_SHAPES, card=card, **row)
@@ -3870,6 +4050,8 @@ def main() -> int:
         **{key: row[key] for key in ("max_abs_err", "max_rel_err", "ms", "device_ms",
                                      "plain_ms", "bound_ms", "bound_by", "bound_share",
                                      "library_ms", "rows", "bytes")},
+        **({"library_device_ms": row["library_device_ms"]} if "library_device_ms" in row
+           else {}),
     } for name, row in fused_train["figures"]["kernels"].items())]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Device time per launch of the port's grid stage and fused step, for the
-port of one or more checkouts, on one NVIDIA card.
+"""Device time per launch of the port's grid stage, fused step, train
+loss and relu masks, for the port of one or more checkouts, on one NVIDIA
+card.
 
     python3 grid_stage_times.py [TREE ...]
 
@@ -14,7 +15,12 @@ checkout's kernels (into TREE/build/torch_kernels/) and measures under
   the cell side) at S=256, A=32, each against its bound
   (``chip_smoke.grid_bound_ms``);
 - ``fused_step_kernel`` at S=1024, A=8, the flagship's widths, seeded
-  weights.
+  weights;
+- ``fused_train_loss_kernel`` (``chip_smoke.loss_case``: 12 steps, one
+  scene in eight padded) and ``fused_train_in_backward_kernel``
+  (``chip_smoke.in_backward_case``: a rollout's 19 steps of rows at the
+  flagship's widths) at ``chip_smoke.TRAIN_KERNEL_SHAPES``, through the
+  tree's own wrappers.
 
 Every tree gets the same inputs: this checkout's ``chip_smoke`` helpers make
 them from fixed seeds.  It prints the card (``nvidia-smi`` name and power
@@ -77,7 +83,33 @@ def measure(tree: Path) -> dict:
             lambda: fused_step.fused_dlstm_step(obs1, obs2, p1, p2, h, c, w), 20,
             "fused_step_kernel")
     return {"tree": str(tree), "grid": {f"{s}x{a}": row for (s, a), row in grid.items()},
-            "geometries": geometries, "fused_1024x8_device_ms": fused_ms}
+            "geometries": geometries, "fused_1024x8_device_ms": fused_ms,
+            "fused_train": train_kernel_times(smoke, dev, rng, params)}
+
+
+def train_kernel_times(smoke, dev, rng, params) -> dict:
+    """Device ms a launch of the fused train route's loss and relu masks at
+    ``smoke.TRAIN_KERNEL_SHAPES``, on inputs from ``smoke``'s helpers at the
+    widths of ``params``."""
+    from trajnetplusplusbaselines_torch.ops.cuda import fused_train
+
+    hidden = params["hidden2normal"]["linear"]["w"].shape[0]
+    x_width = (params["input_embedding"]["linear"]["w"].shape[1] + 2
+               + params["pool"]["embedding"][0]["w"].shape[1])
+    times = {}
+    for s, a in smoke.TRAIN_KERNEL_SHAPES:
+        args = smoke.loss_case(rng, s, a, 12, "eighth", dev)[0]
+        dx, xh = smoke.in_backward_case(rng, 19 * s * a, x_width, x_width + hidden + 1, dev)[0]
+        times[f"{s}x{a}"] = {
+            "loss_entries": 12 * s,
+            "loss_device_ms": smoke.kernel_ms_per_launch(
+                lambda: fused_train.fused_train_loss(*args), smoke.TRAIN_KERNEL_REPS,
+                "fused_train_loss_kernel"),
+            "in_backward_rows": 19 * s * a,
+            "in_backward_device_ms": smoke.kernel_ms_per_launch(
+                lambda: fused_train.fused_train_in_backward(dx, xh), smoke.TRAIN_KERNEL_REPS,
+                "fused_train_in_backward_kernel")}
+    return times
 
 
 def main() -> int:

@@ -29,6 +29,10 @@ run their plain versions, so these tests exercise the Function whole:
   the last encoder step) against autograd with unlike cells; ``cell_pack``'s
   layout; the hidden width and row limits of the cell kernels, in the
   wrappers and in the route predicate;
+- the loss's plain version at the loss kernel's edges (every scene masked,
+  one scene, P = 1) against ``losses.prediction_loss`` and the JAX
+  package's, f64, at 1e-12; the block the loss kernel takes
+  (``loss_threads``);
 - each wrapper raising on a wrong dtype, device or shape; the counters in
   ``trainers/graphs.COUNTERS``; ``chip_smoke.graph_kernel_nodes`` reading
   the new kernels from a graph.
@@ -46,6 +50,7 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from trajnetplusplusbaselines_tpu import losses as jlosses
 from trajnetplusplusbaselines_tpu.models.lstm import LSTM as JLSTM
 from trajnetplusplusbaselines_tpu.ops.embeddings import input_embedding as j_input_embedding
 from trajnetplusplusbaselines_tpu.ops.pooling import GridBasedPooling as JGrid
@@ -626,6 +631,48 @@ def test_fused_loss_counts_no_padded_scene():
     (grad,) = torch.autograd.grad(loss, rel)
     assert float(loss) == 0.0 and not grad.any()
     assert float(losses.prediction_loss(rel[-12:, :, 0], targets, scenes)) == 0.0
+
+
+@pytest.mark.parametrize("case", ["every_scene_masked", "one_scene", "one_step"])
+def test_plain_loss_at_the_edges_matches_both_losses(case):
+    """The loss kernel's plain version at the edges of its cases: every scene
+    masked (count 0, loss 0, dvals 0), one scene, P = 1.  Its loss equals
+    ``losses.prediction_loss``'s and the JAX package's ``prediction_loss``'s
+    on the primaries' last P normals, and dvals / max(count, 1) their
+    gradients with respect to those normals, f64, within 1e-12."""
+    s, p, scenes = {"every_scene_masked": (4, 12, [False] * 4), "one_scene": (1, 12, [True]),
+                    "one_step": (3, 1, [True, False, True])}[case]
+    rng = np.random.default_rng(11)
+    rel = rng.normal(size=(19, s, 3, 5))
+    rel[..., 2:4] = 0.01 + 0.2 / (1 + np.exp(-rel[..., 2:4]))
+    rel[..., 4] = 0.7 / (1 + np.exp(-rel[..., 4]))
+    targets = rng.normal(scale=0.2, size=(p, s, 2))
+    mask = np.array(scenes)
+    loss, count, dvals = (torch.zeros(shape, dtype=torch.float64) for shape in ((), (), (p, s, 5)))
+    fused_train.fused_train_loss_plain(torch.tensor(rel), torch.tensor(targets),
+                                       torch.from_numpy(mask), loss, count, dvals)
+    assert float(count) == p * mask.sum()
+    inputs = torch.tensor(rel[-p:, :, 0], requires_grad=True)
+    want = losses.prediction_loss(inputs, torch.tensor(targets), torch.from_numpy(mask))
+    (grad,) = torch.autograd.grad(want, inputs)
+    j_loss, j_grad = jax.value_and_grad(jlosses.prediction_loss)(
+        jnp.asarray(rel[-p:, :, 0]), jnp.asarray(targets), jnp.asarray(mask))
+    per_entry = dvals / max(float(count), 1.0)
+    for w_loss, w_grad in ((float(want), grad), (float(j_loss), torch.tensor(np.asarray(j_grad)))):
+        assert abs(float(loss) - w_loss) <= OWN_TOL * abs(w_loss)
+        assert _relative(per_entry, w_grad) <= OWN_TOL
+    if case == "every_scene_masked":
+        assert float(loss) == 0.0 and not dvals.any()
+
+
+@pytest.mark.parametrize("entries,want", [(1, 32), (12, 32), (32, 32), (33, 64), (35, 64),
+                                          (96, 96), (1000, 1024), (1024, 1024), (12288, 1024)])
+def test_loss_threads_takes_a_warp_per_32_entries_up_to_1024(entries, want):
+    """``fused_train_loss``'s block: the multiple of 32 at or above its
+    entries (the train batch's 96: 96 threads), at most 1,024, where the
+    threads stride over the entries."""
+    assert fused_train.loss_threads(entries) == want
+    assert want % 32 == 0 and want <= fused_train.LOSS_MAX_THREADS
 
 
 # ------------------------------------------------------------------- checks

@@ -14,6 +14,12 @@ jax, so that it runs on the card's machine without the suite's conftest:
   the tolerance), also at 8,192 rows, at a row count that is not a multiple
   of a tile and at a narrower and a wider hidden width than the
   flagship's, at every tile they take, each run twice to the same bits;
+- each of the six kernels run twice on the same inputs to the same bits;
+  ``fused_train_in_backward`` bit-equal to its plain version (NaN, -0.0
+  and +0.0 in ``xh``) at phase 6c's further widths and rows;
+  ``fused_train_loss`` within 1e-6 of its plain version with
+  every scene masked (all zero), one scene, 35 entries and P = 1, at every
+  block size phase 6c times;
 - a small directional LSTM's loss and gradients on the route against the
   grid route and the plain loss, within 1e-5 of each leaf's largest, with
   the launches a step counted.
@@ -111,6 +117,55 @@ def test_fused_train_in_matches_its_plain_version_on_every_grid(steps, rows, age
     row = {"max_abs_err": 0.0, "max_rel_err": 0.0}
     chip_smoke.held_to_plain("fused_train_in", got, want, row)
     assert row["max_rel_err"] <= chip_smoke.TRAIN_KERNEL_RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", chip_smoke.TRAIN_KERNELS)
+def test_two_runs_give_the_same_bits(name):
+    dev = _card()
+    params = chip_smoke.flagship_model().init_params(torch.Generator().manual_seed(0),
+                                                     device=dev)
+    args, writes, _ = chip_smoke.train_kernel_case(name, np.random.default_rng(3), 8, 8, dev,
+                                                   params)
+    runs = [chip_smoke.run_train_kernel(getattr(fused_train, name), args, writes)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert chip_smoke.bits_equal(*runs)
+
+
+IN_BACKWARD_CASES = [(19 * 64, 320, 449), *chip_smoke.TRAIN_IN_BACKWARD_EDGES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,width,ld", IN_BACKWARD_CASES)
+def test_in_backward_gives_the_plain_versions_bits(rows, width, ld):
+    dev = _card()
+    args, writes, _ = chip_smoke.in_backward_case(np.random.default_rng(4), rows, width, ld, dev)
+    got = chip_smoke.run_train_kernel(fused_train.fused_train_in_backward, args, writes)
+    want = chip_smoke.run_train_kernel(fused_train.fused_train_in_backward_plain, args, writes)
+    torch.cuda.synchronize()
+    assert chip_smoke.bits_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threads", chip_smoke.LOSS_TIMED_THREADS)
+@pytest.mark.parametrize("scenes,agents,steps,masked",
+                         [(8, 8, 12, "eighth"), *chip_smoke.TRAIN_LOSS_EDGES])
+def test_loss_matches_its_plain_version_at_its_edges(scenes, agents, steps, masked, threads):
+    dev = _card()
+    args, writes, _ = chip_smoke.loss_case(np.random.default_rng(5), scenes, agents, steps,
+                                           masked, dev)
+    with mock.patch.object(fused_train, "loss_threads", lambda e: threads):
+        runs = [chip_smoke.run_train_kernel(fused_train.fused_train_loss, args, writes)
+                for _ in range(2)]
+    want = chip_smoke.run_train_kernel(fused_train.fused_train_loss_plain, args, writes)
+    torch.cuda.synchronize()
+    assert chip_smoke.bits_equal(*runs)
+    row = {"max_abs_err": 0.0, "max_rel_err": 0.0}
+    chip_smoke.held_to_plain("fused_train_loss", runs[0], want, row)
+    assert row["max_rel_err"] <= chip_smoke.TRAIN_KERNEL_RTOL
+    if masked == "all":
+        assert not any(bool(x.any()) for x in runs[0])
 
 
 @pytest.mark.cuda

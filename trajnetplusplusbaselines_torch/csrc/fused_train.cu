@@ -76,12 +76,14 @@
 //   in group order; every block makes its rows' 5-wide head gradient
 //   itself, so no block waits on another.
 // - fused_train_in_backward_kernel (once a rollout): both relu masks on the
-//   gradient of every step's x, in place.  A thread per element.
+//   gradient of every step's x, in place.  A block per tile of 16 rows, a
+//   warp per row, its lanes walking the row in float4 of dx; no division.
 // - fused_train_loss_kernel and fused_train_loss_backward_kernel (once a
 //   train step each): the trainer's mixture NLL of the primaries' last 12
 //   normals (losses.prediction_loss: ~70 small ops forward and ~170
-//   backward under autograd), its masked mean in one block, its gradient
-//   with respect to the whole rel_pred written in one pass.
+//   backward under autograd), its masked mean in one block sized to the
+//   entries (fused_train.loss_threads), summed by warp shuffles; its
+//   gradient with respect to the whole rel_pred written in one pass.
 //
 // What bounds them.  The cell kernels: by the card's peaks, the forward's
 // operations (2 R (E + P + H + 1) 4H FLOP: 29.4 M at 64 rows, 0.44 us at 67
@@ -92,7 +94,20 @@
 // L2 (8.3 MB in all): the design keeps the tile's K in flight at once and
 // sums in registers, with no second pass and no split of K across blocks.
 // The other kernels: bytes, a handful of operations per byte, each at
-// launch scale at 64 rows.  fused_train_in's bytes are its rows of the grid
+// launch scale at 64 rows, where what is left beside the launch is the
+// latency of their trips to memory and of their dependent chains.  The
+// loss (96 entries for the train batch, 1.4 KB) once loaded its scene's
+// mask, then that entry's normal behind it, ran ~20 IEEE divisions an entry
+// and summed over a 256-slot tree of 8 barriers: now every load of an entry
+// is issued before any branch, four reciprocals stand for most divisions,
+// and the sums take two warp butterflies and one barrier.  The relu masks
+// need xh's x part read and the elements they zero written (~2.4 MB at
+// 1,216 rows, about half the elements zeroed); they once took a thread an
+// element and a 64-bit division by the row's width (not a power of two) to
+// find its row, storing only the zeros: now a warp walks a row in float4
+// of dx, its row's base formed once, and writes each float4 whole, so it
+// reads dx too (4.7 MB moved).
+// fused_train_in's bytes are its rows of the grid
 // and of xh and the rows of W_grid that the occupied cells name (1 KB each
 // at P = 256): ~0.2-0.4 MB at 64 rows.  No atomic sums: every sum runs in a
 // fixed order, so two runs, and a CUDA graph replay and an eager step, give
@@ -114,8 +129,11 @@ constexpr int CELL_BACK_KC = 128;  // the backward's gate columns a copy group
 constexpr int CELL_MAX_CLUSTER = 8;  // the forward's blocks a row tile (portable cluster size)
 constexpr int CELL_MAX_LD = 2048;  // the forward's xh row (x, h and 1): its tile stays resident
 constexpr int MAX_BLOCKS = 4096;  // a grid-stride kernel's blocks at most
-constexpr int LOSS_THREADS = 256;  // the loss's one block (a power of two)
-constexpr float TWO_PI = 6.283185307179586f;
+constexpr int LOSS_MAX_THREADS = 1024;  // the loss's one block (a multiple of 32)
+constexpr int IB_WARPS = 8;  // the relu masks' block: a row a warp at a time
+constexpr int IB_RPT = 2;  // rows a warp takes: a tile of 16 rows a block
+constexpr int IB_UNITS = 3;  // float4 of a row a lane has in flight (80 a flagship row)
+constexpr float INV_TWO_PI = 0.15915494309189535f;
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
 
@@ -817,81 +835,171 @@ cudaError_t launch_train_cell_backward(const float* d_rel, const float* d_pred,
   return cudaSuccess;
 }
 
-__global__ void fused_train_in_backward_kernel(float* __restrict__ dx,
-                                               const float* __restrict__ xh, int n, int width,
-                                               int ld) {
-  const long total = static_cast<long>(n) * width;
-  for (long idx = blockIdx.x * static_cast<long>(blockDim.x) + threadIdx.x; idx < total;
-       idx += static_cast<long>(gridDim.x) * blockDim.x) {
-    const long r = idx / width;
-    if (!(xh[r * ld + idx % width] > 0.f)) dx[idx] = 0.f;
+// The relu masks: a block per tile of IB_WARPS * IB_RPT rows, warp w
+// taking rows w and w + IB_WARPS of it.  A warp's lanes walk its rows'
+// units (float4 of dx where VEC: the width a multiple of 4 and dx on 16
+// bytes; else floats) IB_UNITS apart in a row, every load of a pass issued
+// before its stores, so that a lane has IB_UNITS units of each of its two
+// rows in flight (2 or 3 of a flagship row's 80 float4).  A unit is written
+// whole with the select applied (NaN in xh is not positive, as in
+// torch.where(x > 0, ...)).  xh is read float by float: a flagship row of
+// xh is 449 floats.  Offsets within a row are 32-bit; a row's bases are
+// formed once.  16 rows a tile: on an H100 the fastest of 8, 16 and 32 at
+// a flagship rollout's 1,216 rows, level with them at 155,648 (PERF.md).
+template <bool VEC>
+__global__ void __launch_bounds__(32 * IB_WARPS)
+    fused_train_in_backward_kernel(float* __restrict__ dx, const float* __restrict__ xh, int n,
+                                   int width, int ld) {
+  const int units = VEC ? width / 4 : width;
+  float* drow[IB_RPT];
+  const float* xrow[IB_RPT];
+  bool live[IB_RPT];
+#pragma unroll
+  for (int k = 0; k < IB_RPT; ++k) {
+    const int r = static_cast<int>((blockIdx.x * IB_RPT + k) * IB_WARPS + threadIdx.y);
+    live[k] = r < n;
+    drow[k] = dx + static_cast<size_t>(live[k] ? r : 0) * width;
+    xrow[k] = xh + static_cast<size_t>(live[k] ? r : 0) * ld;
+  }
+  for (int j0 = threadIdx.x; j0 < units; j0 += 32 * IB_UNITS) {
+    float4 v[IB_RPT][IB_UNITS], x[IB_RPT][IB_UNITS];
+#pragma unroll
+    for (int k = 0; k < IB_RPT; ++k) {
+#pragma unroll
+      for (int i = 0; i < IB_UNITS; ++i) {
+        const int j = j0 + 32 * i;
+        if (!live[k] || j >= units) continue;
+        if (VEC) {
+          v[k][i] = reinterpret_cast<const float4*>(drow[k])[j];
+          const float* xs = xrow[k] + 4 * j;
+          x[k][i] = make_float4(xs[0], xs[1], xs[2], xs[3]);
+        } else {
+          v[k][i].x = drow[k][j];
+          x[k][i].x = xrow[k][j];
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < IB_RPT; ++k) {
+#pragma unroll
+      for (int i = 0; i < IB_UNITS; ++i) {
+        const int j = j0 + 32 * i;
+        if (!live[k] || j >= units) continue;
+        const float4 a = v[k][i], b = x[k][i];
+        if (VEC) {
+          reinterpret_cast<float4*>(drow[k])[j] =
+              make_float4(b.x > 0.f ? a.x : 0.f, b.y > 0.f ? a.y : 0.f, b.z > 0.f ? a.z : 0.f,
+                          b.w > 0.f ? a.w : 0.f);
+        } else {
+          drow[k][j] = b.x > 0.f ? a.x : 0.f;
+        }
+      }
+    }
   }
 }
 
 // The mixture NLL -log(0.01 + 0.2 N(mu, 3) + 0.79 N(mu, sigma, rho)) of one
-// entry (in: mu1, mu2, s1, s2, rho) at (x, y), and its gradient.
-__device__ void nll_and_grad(const float in[5], float x, float y, float* value, float d[5]) {
+// entry (in: mu1, mu2, s1, s2, rho) at (x, y), and its gradient.  The
+// Gaussian's exponent keeps the plain version's four divisions and its
+// rounding, with no contraction (the __f*_rn intrinsics): exp carries an
+// error of its argument into the density times the argument's size (up to
+// ~1e-6 of the gradient's largest at the train batch's normals with a
+// reciprocal there).  Every other quotient multiplies by one of four
+// reciprocals (of s1, s2, q and the density), so that a chain holds four
+// divisions and four reciprocals, not ~20 divisions.
+__device__ __forceinline__ void nll_and_grad(const float in[5], float x, float y, float* value,
+                                             float d[5]) {
   const float mu1 = in[0], mu2 = in[1], s1 = in[2], s2 = in[3], rho = in[4];
   const float n1 = x - mu1, n2 = y - mu2;
-  const float g_bg = expf(-((n1 / 3.f) * (n1 / 3.f) + (n2 / 3.f) * (n2 / 3.f)) / 2.f) /
-                     (TWO_PI * 9.f);
-  const float a = n1 / s1, b = n2 / s2, q = 1.f - rho * rho;
-  const float z = a * a + b * b - 2.f * rho * n1 * n2 / (s1 * s2);
-  const float g = expf(-z / (2.f * q)) / (TWO_PI * s1 * s2 * sqrtf(q));
+  // the exponent, as the plain version rounds it
+  const float a = __fdiv_rn(n1, s1), b = __fdiv_rn(n2, s2);
+  const float q = __fsub_rn(1.f, __fmul_rn(rho, rho));
+  const float z = __fsub_rn(__fadd_rn(__fmul_rn(a, a), __fmul_rn(b, b)),
+                            __fdiv_rn(__fmul_rn(__fmul_rn(2.f * rho, n1), n2), __fmul_rn(s1, s2)));
+  const float arg = __fdiv_rn(-z, 2.f * q);
+  // the rest by reciprocals
+  const float rs1 = __frcp_rn(s1), rs2 = __frcp_rn(s2), rq = __frcp_rn(q);
+  const float g_bg = expf((n1 * n1 + n2 * n2) * (-1.f / 18.f)) * (INV_TWO_PI / 9.f);
+  const float g = expf(arg) * (rs1 * rs2 * sqrtf(rq) * INV_TWO_PI);
   const float density = 0.01f + 0.2f * g_bg + 0.79f * g;
-  const float c_bg = -0.2f * g_bg / density, c = -0.79f * g / density;
+  const float rd = __frcp_rn(density);
+  const float c_bg = -0.2f * g_bg * rd, c = -0.79f * g * rd;
+  const float amb = a - rho * b, bma = b - rho * a;
   *value = -logf(density);
-  d[0] = c_bg * n1 / 9.f + c * (a - rho * b) / (s1 * q);
-  d[1] = c_bg * n2 / 9.f + c * (b - rho * a) / (s2 * q);
-  d[2] = c * (a * (a - rho * b) / q - 1.f) / s1;
-  d[3] = c * (b * (b - rho * a) / q - 1.f) / s2;
-  d[4] = c * (a * b / q - rho * z / (q * q) + rho / q);
+  d[0] = c_bg * n1 * (1.f / 9.f) + c * amb * rs1 * rq;
+  d[1] = c_bg * n2 * (1.f / 9.f) + c * bma * rs2 * rq;
+  d[2] = c * (a * amb * rq - 1.f) * rs1;
+  d[3] = c * (b * bma * rq - 1.f) * rs2;
+  d[4] = c * (a * b * rq - rho * z * rq * rq + rho * rq);
 }
 
-// One block: entry e = (t, s) of the primaries' last p steps, strided over
-// the threads; each writes its gradient, then a tree over the threads in a
-// fixed order sums the values and the count.  A masked scene reads the unit
-// normal at the origin and contributes nothing.
-__global__ void fused_train_loss_kernel(const float* __restrict__ rel,
-                                        const float* __restrict__ targets,
-                                        const uint8_t* __restrict__ scene_mask,
-                                        float* __restrict__ loss, float* __restrict__ count,
-                                        float* __restrict__ dvals, int t_all, int p, int s,
-                                        int a) {
-  __shared__ float sums[LOSS_THREADS], counts[LOSS_THREADS];
-  float sum = 0.f, n = 0.f;
-  for (int e = threadIdx.x; e < p * s; e += blockDim.x) {
-    const int t = e / s, sc = e % s;
-    const bool m = scene_mask[sc];
-    float in[5] = {0.f, 0.f, 1.f, 1.f, 0.f}, x = 0.f, y = 0.f, value, d[5];
-    if (m) {
-      const float* r = rel + ((static_cast<long>(t_all - p + t) * s + sc) * a) * 5;
+// The sum of v over a warp by a butterfly: every lane gets the same bits,
+// in the same order in every run.
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll
-      for (int k = 0; k < 5; ++k) in[k] = r[k];
-      x = targets[2 * e];
-      y = targets[2 * e + 1];
+  for (int lane_mask = 16; lane_mask > 0; lane_mask >>= 1) {
+    v += __shfl_xor_sync(0xffffffffu, v, lane_mask);
+  }
+  return v;
+}
+
+// One block of blockDim.x threads (a multiple of 32 up to LOSS_MAX_THREADS,
+// fused_train.loss_threads): entry e = (t, s) of the primaries' last p
+// steps, a thread each, strided over the threads above 1,024.  A thread issues
+// all of its entry's loads before any branch (its scene's mask, its normal
+// and its target, in bounds whatever the mask) and then selects the unit
+// normal at the origin in a masked scene, as the plain version does.  Its
+// dvals are five consecutive floats, a warp's 640 contiguous bytes (timed
+// faster on an H100 than staging a chunk's run through shared memory and
+// storing it coalesced, which adds a barrier a chunk).  The value and the
+// count are summed by a warp butterfly, the warps' partials passed through
+// shared memory after one barrier and added by warp 0's butterfly: a fixed
+// order, no atomics.
+__global__ void __launch_bounds__(LOSS_MAX_THREADS)
+    fused_train_loss_kernel(const float* __restrict__ rel, const float* __restrict__ targets,
+                            const uint8_t* __restrict__ scene_mask, float* __restrict__ loss,
+                            float* __restrict__ count, float* __restrict__ dvals, int t_all, int p,
+                            int s, int a) {
+  __shared__ float warp_sums[LOSS_MAX_THREADS / 32];
+  __shared__ int warp_counts[LOSS_MAX_THREADS / 32];
+  const int tid = threadIdx.x, threads = blockDim.x, entries = p * s;
+  float sum = 0.f;
+  int n = 0;
+  for (int e = tid; e < entries; e += threads) {
+    const unsigned t = static_cast<unsigned>(e) / static_cast<unsigned>(s);
+    const int sc = e - static_cast<int>(t) * s;
+    const float* r = rel + (static_cast<size_t>(t_all - p + t) * s + sc) * a * 5;
+    const bool m = scene_mask[sc];
+    float in[5] = {r[0], r[1], r[2], r[3], r[4]};
+    float x = targets[2 * e], y = targets[2 * e + 1];
+    if (!m) {
+      in[0] = in[1] = in[4] = x = y = 0.f;
+      in[2] = in[3] = 1.f;
     }
+    float value, d[5];
     nll_and_grad(in, x, y, &value, d);
 #pragma unroll
-    for (int k = 0; k < 5; ++k) dvals[5 * e + k] = m ? d[k] : 0.f;
-    if (m) {
-      sum += value;
-      n += 1.f;
-    }
+    for (int k = 0; k < 5; ++k) dvals[5 * static_cast<size_t>(e) + k] = m ? d[k] : 0.f;
+    sum += m ? value : 0.f;
+    n += m;
   }
-  sums[threadIdx.x] = sum;
-  counts[threadIdx.x] = n;
+  sum = warp_sum(sum);
+  n = warp_sum(n);
+  const int warp = tid / 32, lane = tid % 32;
+  if (lane == 0) {
+    warp_sums[warp] = sum;
+    warp_counts[warp] = n;
+  }
   __syncthreads();
-  for (int half = blockDim.x / 2; half > 0; half >>= 1) {
-    if (threadIdx.x < half) {
-      sums[threadIdx.x] += sums[threadIdx.x + half];
-      counts[threadIdx.x] += counts[threadIdx.x + half];
+  if (warp == 0) {
+    const bool held = lane < threads / 32;
+    sum = warp_sum(held ? warp_sums[lane] : 0.f);
+    n = warp_sum(held ? warp_counts[lane] : 0);
+    if (lane == 0) {
+      *count = static_cast<float>(n);
+      *loss = sum / fmaxf(static_cast<float>(n), 1.f);
     }
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    *count = counts[0];
-    *loss = sums[0] / fmaxf(counts[0], 1.f);
   }
 }
 
@@ -1033,18 +1141,28 @@ int dlstm_train_cell_backward(const float* d_rel, const float* d_pred, const uin
 // dx [n, width] in place; xh [n, ld], ld >= width.
 int dlstm_train_in_backward(float* dx, const float* xh, int n, int width, int ld,
                             void* stream) {
-  fused_train_in_backward_kernel<<<element_blocks(static_cast<long>(n) * width),
-                                   ELEMENT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      dx, xh, n, width, ld);
+  if (n < 1 || width < 1 || ld < width) return static_cast<int>(cudaErrorInvalidValue);
+  const int tile = IB_WARPS * IB_RPT;
+  const dim3 grid(static_cast<unsigned>((n + tile - 1) / tile)), block(32, IB_WARPS);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (width % 4 == 0 && reinterpret_cast<uintptr_t>(dx) % 16 == 0) {
+    fused_train_in_backward_kernel<true><<<grid, block, 0, st>>>(dx, xh, n, width, ld);
+  } else {
+    fused_train_in_backward_kernel<false><<<grid, block, 0, st>>>(dx, xh, n, width, ld);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 // rel [t_all, s, a, 5]; targets [p, s, 2]; scene_mask [s]; loss, count
-// one float each; dvals [p, s, 5].
+// one float each; dvals [p, s, 5].  threads: the block's, a multiple of 32
+// up to LOSS_MAX_THREADS (fused_train.loss_threads).
 int dlstm_train_loss(const float* rel, const float* targets, const uint8_t* scene_mask,
                      float* loss, float* count, float* dvals, int t_all, int p, int s, int a,
-                     void* stream) {
-  fused_train_loss_kernel<<<1, LOSS_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+                     int threads, void* stream) {
+  if (threads < 32 || threads > LOSS_MAX_THREADS || threads % 32 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  fused_train_loss_kernel<<<1, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       rel, targets, scene_mask, loss, count, dvals, t_all, p, s, a);
   return static_cast<int>(cudaGetLastError());
 }

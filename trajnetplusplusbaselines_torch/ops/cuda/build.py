@@ -47,7 +47,7 @@ _SIGNATURES = {
     "dlstm_train_cell": [_P] * 16 + [_I] * 6 + [_P],
     "dlstm_train_cell_backward": [_P] * 14 + [_I] * 4 + [_P],
     "dlstm_train_in_backward": [_P] * 2 + [_I] * 3 + [_P],
-    "dlstm_train_loss": [_P] * 6 + [_I] * 4 + [_P],
+    "dlstm_train_loss": [_P] * 6 + [_I] * 5 + [_P],
     "dlstm_train_loss_backward": [_P] * 4 + [_I] * 4 + [_P],
 }
 

@@ -316,6 +316,20 @@ def cell_tile_rows(rows: int, hidden: int, kernel: str = "forward") -> int:
     return next((t for most, t in CELL_SPLITS[kernel] if rows <= most), CELL_TILE_ROWS[-1])
 
 
+# the threads of ``fused_train_loss``'s one block: a warp for each 32
+# entries (the train batch's 96: three), at most ``LOSS_MAX_THREADS``, the
+# threads striding over the entries above; on an H100 (chip_smoke.py phase
+# 6c (a) times ``chip_smoke.LOSS_TIMED_THREADS``) a thread an entry is as
+# fast as any larger block at 96 entries and 1,024 the fastest at 12,288
+LOSS_MAX_THREADS = 1024
+
+
+def loss_threads(entries: int) -> int:
+    """The threads of ``fused_train_loss``'s block for ``entries`` entries
+    (P x S)."""
+    return min(LOSS_MAX_THREADS, 32 * -(-entries // 32))
+
+
 def takes_widths(input_width: int, hidden: int) -> bool:
     """True where the cell kernels take a cell of ``input_width`` inputs (x)
     and ``hidden`` units."""
@@ -479,8 +493,8 @@ def fused_train_loss(rel, targets, scene_mask, loss, count, dvals) -> None:
     """The mixture NLL of the primaries' last P steps
     (``fused_train_loss_plain``): ``rel`` [T', S, A, 5], ``targets`` [P, S,
     2], ``scene_mask`` [S] bool; writes ``loss`` [], ``count`` [] and
-    ``dvals`` [P, S, 5].  The kernel on the card, the plain version on the
-    CPU."""
+    ``dvals`` [P, S, 5].  The kernel on the card (one block of
+    ``loss_threads(P S)`` threads), the plain version on the CPU."""
     t_all, s, a = rel.shape[:3]
     p = targets.shape[0]
     dev, dt = rel.device, rel.dtype
@@ -494,7 +508,8 @@ def fused_train_loss(rel, targets, scene_mask, loss, count, dvals) -> None:
         _check(name, x, shape, dtype, dev)
     if not _kernel_device(rel):
         return fused_train_loss_plain(rel, targets, scene_mask, loss, count, dvals)
-    _launch("dlstm_train_loss", rel, targets, scene_mask, loss, count, dvals, t_all, p, s, a)
+    _launch("dlstm_train_loss", rel, targets, scene_mask, loss, count, dvals, t_all, p, s, a,
+            loss_threads(p * s))
     fused_train_loss.launches += 1
 
 
