@@ -106,7 +106,12 @@ PyTorch built for CUDA (no jax needed).  Phases, one line each:
    moves, and ``threshold_backward``'s device time and time a call;
    ``fused_train_loss`` within 1e-6 of its plain version also with every
    scene masked (all zero), one scene, 35 entries and P = 1, its distance
-   to the plain version in f64, at each block size; each kernel run twice
+   to the plain version in f64, at each block size;
+   ``fused_train_loss_backward`` bit-equal to its plain version on its
+   float4 and scalar paths (``d_rel`` 4 bytes past 16) at
+   ``TRAIN_LOSS_BACKWARD_CASES`` and at 64 and 8,192 rows, also with every
+   scene masked (all zero), its time a launch at 96 and 12,288 entries on
+   both paths beside its bound; each kernel run twice
    to the same bits; (b) the route's loss and every leaf's gradient against
    the grid route's on one batch (defaults, a collision term,
    ``start_length`` 3), 1e-5 of each leaf's largest (the loss: of its own
@@ -160,10 +165,11 @@ PyTorch built for CUDA (no jax needed).  Phases, one line each:
    (b) an SGAN generator and discriminator step and a VAE step at batch 8
        against f64 on the CPU at phase 7c's tolerances, label and draws
        pinned, with their launches (19 grid-stage; 19 fused and 40
-       grid-stage; 30 grid-stage) and times;
+       grid-stage; 30 grid-stage and k of each loss kernel) and times;
    (c) ``trainers.sgan.main`` and ``trainers.vae.main`` (--k 3), one epoch
        each at batch 8 on a split of phase 6's sizes, their launches held
-       to the batches, and each pickle served through ``sgan_cli`` /
+       to the batches (the VAE's: k of each loss kernel a train batch, k of
+       the loss a val batch), and each pickle served through ``sgan_cli`` /
        ``vae_cli --modes 3``.  Every time is printed beside the card;
 9. classical (constant velocity, the Kalman filter, social force, ORCA; no
    kernel of the port; f64):
@@ -217,6 +223,8 @@ PyTorch built for CUDA (no jax needed).  Phases, one line each:
        batch loss within 1e-5 relative of a one-process run of the same
        seed, 19 grid-stage launches per train step (and 2 x 19 fused per
        val batch) in each rank; one ``make_sharded_train_step`` step's
+       launches (19 grid, the fused train route's and one of each loss
+       kernel on the gathered ``rel``) in each rank and in one process, its
        all-reduced gradients within 1e-5 of each leaf's largest of the
        one-process step's; each rank's ms per step against one process's,
        labelled "two ranks on one card; not a scaling number";
@@ -392,6 +400,13 @@ TRAIN_IN_GRIDS = ((8, 0), (8, 14), (32, 62), (8, 288))
 TRAIN_LOSS_EDGES = ((8, 8, 12, "all"), (1, 8, 12, "none"), (5, 3, 7, "third"),
                     (3, 4, 1, "third"))
 LOSS_TIMED_THREADS = (32, 64, 96, 128, 256, 512, 1024)
+# fused_train_loss_backward's further cases, (T', P, S, A): the train
+# step's, A = 5, 1 and 3 (the scalar path), P = T' and P = 1; each, and
+# TRAIN_KERNEL_SHAPES, with dvals drawn and with every scene masked (count
+# 0, dvals 0), on a d_rel on 16 bytes (the float4 path where A % 4 == 0)
+# and on one 4 bytes past (the scalar path), held to the plain version's
+# bits
+TRAIN_LOSS_BACKWARD_CASES = ((19, 12, 8, 8), (19, 19, 3, 5), (12, 1, 1, 1), (19, 12, 2, 3))
 # fused_train_in_backward's further cases, (rows, width, ld): a width that
 # is no multiple of 4 (the float path), rows that fill no tile
 TRAIN_IN_BACKWARD_EDGES = ((19 * 8 * TRAIN_BATCH, 317, 449), (13, 320, 449))
@@ -1184,9 +1199,41 @@ def train_kernel_case(name, rng, s, a, dev, params) -> tuple:
         return in_backward_case(rng, 19 * r, x_width, ld, dev)
     if name == "fused_train_loss":
         return loss_case(rng, s, a, 12, "eighth", dev)
-    p = 12
-    args = (8.0 + f(), f(p, s, 5), 60.0 + f(), f(19, s, a, 5))
-    return args, (3,), 4 * (2 + p * s * 5 + 19 * r * 5)
+    return loss_backward_case(rng, 19, 12, s, a, dev)
+
+
+def loss_backward_case(rng, t_all, p, s, a, dev, masked=False) -> tuple:
+    """``fused_train_loss_backward``'s arguments for the primaries' last
+    ``p`` of ``t_all`` steps of [S, A], drawn from ``rng``: ``d_loss``,
+    ``dvals`` [P, S, 5] and ``count`` (``masked``: every scene masked, as
+    the loss leaves it: count 0, dvals 0), ``d_rel`` filled at random; the
+    index of the argument it writes; its bytes (each input read once,
+    ``d_rel`` written once)."""
+
+    def f(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    dvals, count = (f(p, s, 5), 60.0 + f()) if not masked else (
+        torch.zeros(p, s, 5, device=dev), torch.zeros((), device=dev))
+    args = (8.0 + f(), dvals, count, f(t_all, s, a, 5))
+    return args, (3,), 4 * (2 + p * s * 5 + t_all * s * a * 5)
+
+
+def off_sixteen(x):
+    """A contiguous copy of ``x`` that starts 4 bytes past 16 (the loss
+    backward's scalar path, whatever its agents)."""
+    out = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(x.shape)
+    out.copy_(x)
+    if out.data_ptr() % 16 != 4:
+        raise AssertionError(f"a copy at {out.data_ptr()} is not 4 bytes past 16")
+    return out
+
+
+def loss_backward_buffers(args, scalar):
+    """Copies of ``loss_backward_case``'s ``args``, ``d_rel`` 4 bytes past
+    16 where ``scalar``."""
+    d_loss, dvals, count, d_rel = (x.clone() for x in args)
+    return d_loss, dvals, count, off_sixteen(d_rel) if scalar else d_rel
 
 
 def in_backward_case(rng, rows, width, ld, dev) -> tuple:
@@ -1621,6 +1668,68 @@ def train_loss_figures(rng, dev, card) -> dict:
     return {**row, "cases": cases, "split": split}
 
 
+def train_loss_backward_figures(rng, dev, card) -> dict:
+    """Phase 6c (a) for ``fused_train_loss_backward``: the kernel bit-equal
+    to its plain version and run twice to the same bits at
+    ``TRAIN_LOSS_BACKWARD_CASES`` and at ``TRAIN_KERNEL_SHAPES`` (12 of 19
+    steps), each with dvals drawn and with every scene masked (all zero),
+    on the float4 path (``d_rel`` on 16 bytes, A % 4 == 0) and the scalar
+    path (``off_sixteen``); at the shapes, on both paths, its device us a
+    launch beside its bound (its bytes at the memory's rate).  Returns the
+    kernel table's row at the train step's 96 entries on the float4 path,
+    with ``cases`` and ``timed``."""
+    from trajnetplusplusbaselines_torch.ops.cuda import fused_train
+
+    wrapper = fused_train.fused_train_loss_backward
+    plain = fused_train.fused_train_loss_backward_plain
+    kernel = "fused_train_loss_backward_kernel"
+    row, cases, timed = {"max_abs_err": 0.0, "max_rel_err": 0.0}, [], []
+    shapes = [(19, 12, s, a) for s, a in TRAIN_KERNEL_SHAPES]
+    for t_all, p, s, a in dict.fromkeys(shapes + list(TRAIN_LOSS_BACKWARD_CASES)):
+        for masked in (False, True):
+            args, _, nbytes = loss_backward_case(rng, t_all, p, s, a, dev, masked)
+            for scalar in (False, True):
+                path = "float4" if a % 4 == 0 and not scalar else "scalar"
+                runs = []
+                for fn in (wrapper, wrapper, plain):
+                    buffers = loss_backward_buffers(args, scalar)
+                    fn(*buffers)
+                    runs.append(buffers[3])
+                torch.cuda.synchronize()
+                label = (f"fused_train_loss_backward at T'={t_all} P={p} S={s} A={a}, "
+                         f"{'every scene masked, ' if masked else ''}{path} path")
+                if not bits_equal(runs[:1], runs[1:2]):
+                    raise AssertionError(f"{label}: two runs differ")
+                if not bits_equal(runs[:1], runs[2:]):
+                    err = float((runs[0] - runs[2]).abs().max())
+                    raise AssertionError(f"{label}: not the plain version's bits (up to {err})")
+                if masked and bool(runs[0].any()):
+                    raise AssertionError(f"{label}: d_rel must be zero")
+                cases.append({"steps": t_all, "last": p, "scenes": s, "agents": a,
+                              "masked": masked, "path": path, "bits_equal": True})
+                if masked or (t_all, p, s, a) not in shapes:
+                    continue
+                buffers = loss_backward_buffers(args, scalar)
+                case = {"entries": p * s, "scenes": s, "agents": a, "path": path,
+                        "bytes": nbytes, "bound_us": 1e6 * nbytes / PEAK_BYTES,
+                        "device_us": 1e3 * kernel_ms_per_launch(lambda: wrapper(*buffers),
+                                                                TRAIN_KERNEL_REPS, kernel)}
+                case["bound_share"] = case["bound_us"] / case["device_us"]
+                timed.append(case)
+                if (t_all, p, s, a) == shapes[0] and not scalar:
+                    row.update(rows=s * a, entries=p * s, bytes=nbytes,
+                               bound_ms=case["bound_us"] / 1e3, bound_by="bytes",
+                               ms=time_ms(lambda: wrapper(*buffers), reps=TRAIN_KERNEL_REPS),
+                               plain_ms=time_ms(lambda: plain(*buffers), reps=TRAIN_KERNEL_REPS),
+                               device_ms=case["device_us"] / 1e3,
+                               bound_share=case["bound_share"],
+                               # no one PyTorch call zero-fills d_rel and scatters the
+                               # scaled dvals into it
+                               library_ms=None)
+    say("fused_train_loss_backward_cases", card=card, cases=cases)
+    return {**row, "cases": cases, "timed": timed}
+
+
 def run_train_kernel(fn, args, writes) -> list:
     """``fn`` on copies of ``args``; the written tensors, flat."""
     copies = [tuple(x.clone() for x in a) if isinstance(a, tuple) else a.clone()
@@ -1640,7 +1749,10 @@ def fused_train_phase(dev, rng, card) -> dict:
     plain version at ``TRAIN_IN_BACKWARD_EDGES`` too, beside the one PyTorch call of the same function (``threshold_backward``,
     ``train_in_backward_figures``); the loss at ``TRAIN_LOSS_EDGES`` too,
     its distance to the plain version in f64, each block size timed
-    (``train_loss_figures``); ``fused_train_in`` at ``TRAIN_IN_SHAPES`` on ``TRAIN_IN_GRIDS``, its
+    (``train_loss_figures``); the loss's backward bit-equal to its plain
+    version on its float4 and scalar paths at ``TRAIN_LOSS_BACKWARD_CASES``
+    too, timed on both at the two shapes (``train_loss_backward_figures``);
+    ``fused_train_in`` at ``TRAIN_IN_SHAPES`` on ``TRAIN_IN_GRIDS``, its
     splits timed, beside ``torch.addmm`` (``train_in_figures``); the two
     cell kernels also at ``TRAIN_CELL_EDGES``, each case's bound by bytes
     or operations, its tiles timed, beside the library call of the product
@@ -1681,37 +1793,13 @@ def fused_train_phase(dev, rng, card) -> dict:
                    "fused_train_cell_backward", rng, dev, params, card),
                "fused_train_in_backward": lambda: train_in_backward_figures(rng, dev, params,
                                                                             card),
-               "fused_train_loss": lambda: train_loss_figures(rng, dev, card)}
+               "fused_train_loss": lambda: train_loss_figures(rng, dev, card),
+               "fused_train_loss_backward": lambda: train_loss_backward_figures(rng, dev, card)}
     for name in TRAIN_KERNELS:
-        if name in figures:
-            kernels[name] = figures[name]()
-            say("fused_train_kernel", kernel=name, card=card,
-                shapes=TRAIN_IN_SHAPES if name == "fused_train_in" else TRAIN_KERNEL_SHAPES,
-                **{k: v for k, v in kernels[name].items() if k not in ("cases", "split")})
-            continue
-        wrapper, plain = getattr(fused_train, name), getattr(fused_train, name + "_plain")
-        row = {"max_abs_err": 0.0, "max_rel_err": 0.0}
-        for s, a in TRAIN_KERNEL_SHAPES:
-            args, writes, nbytes = train_kernel_case(name, rng, s, a, dev, params)
-            got, want = run_train_kernel(wrapper, args, writes), run_train_kernel(plain, args,
-                                                                                  writes)
-            torch.cuda.synchronize()
-            held_to_plain(f"{name} at S={s} A={a}", got, want, row)
-            if (s, a) != TRAIN_KERNEL_SHAPES[0]:
-                continue
-            # times at the train step's rows, on one set of buffers
-            copies = [tuple(x.clone() for x in v) if isinstance(v, tuple) else v.clone()
-                      for v in args]
-            row.update(
-                rows=s * a, bytes=nbytes, bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes",
-                ms=time_ms(lambda: wrapper(*copies), reps=TRAIN_KERNEL_REPS),
-                plain_ms=time_ms(lambda: plain(*copies), reps=TRAIN_KERNEL_REPS),
-                device_ms=kernel_ms_per_launch(lambda: wrapper(*copies), TRAIN_KERNEL_REPS,
-                                               f"{name}_kernel"),
-                library_ms=None)
-            row["bound_share"] = row["bound_ms"] / row["device_ms"]
-        kernels[name] = row
-        say("fused_train_kernel", kernel=name, shapes=TRAIN_KERNEL_SHAPES, card=card, **row)
+        kernels[name] = figures[name]()
+        say("fused_train_kernel", kernel=name, card=card,
+            shapes=TRAIN_IN_SHAPES if name == "fused_train_in" else TRAIN_KERNEL_SHAPES,
+            **{k: v for k, v in kernels[name].items() if k not in ("cases", "split")})
 
     # (b) the route against the grid route on one batch
     batch = train_inputs(rng, TRAIN_BATCH, 8, dev)
@@ -2074,8 +2162,8 @@ def loss_launches(train_losses: int, val_losses: int = 0) -> dict:
     """The loss kernels' launches of a ``pred``-criterion trainer in f32 on
     the card, whichever route made its rollouts: ``fused_train_loss`` for
     each of ``train_losses`` train losses and ``val_losses`` validation
-    losses (two a validation batch), ``fused_train_loss_backward`` for each
-    train loss."""
+    losses (the LSTM trainer's: two a validation batch; the VAE's: one a
+    mode), ``fused_train_loss_backward`` for each train loss."""
     return {TRAIN_KERNELS[4]: train_losses + val_losses, TRAIN_KERNELS[5]: train_losses}
 
 
@@ -2533,7 +2621,7 @@ def generative_steps(kind, model, params, dev, rng, card, counted) -> dict:
                 lambda: card_tr.train_step(*batch, step_type=step_type), reps=10)
     else:
         eps = torch.randn(GEN_MODES, TRAIN_BATCH, 8, GEN_LATENT, generator=gen)
-        want = {"directional_grid": 30, "fused_dlstm_step": 0}
+        want = {"directional_grid": 30, "fused_dlstm_step": 0, **loss_launches(GEN_MODES)}
         got = counted(lambda: card_tr.loss_and_grads(*batch, eps=eps.to(dev)), want)
         loss, _, grads = cpu_tr.loss_and_grads(*cpu_batch, eps=eps.double())
         loss_rel, grad_err = step_errors((got[0], got[2]), (loss, grads), card_tr.paths)
@@ -2661,9 +2749,10 @@ def generative_phase(dev, rng, card) -> dict:
                     g, d = kinds.count("g"), kinds.count("d")
                     want = {"fused_dlstm_step": 19 * (d + batches[1]),
                             "directional_grid": 19 * g + 40 * d}
-                else:
+                else:  # the loss a mode a batch, its backward a mode a train batch
                     want = {"fused_dlstm_step": 30 * batches[1],
-                            "directional_grid": 30 * batches[0]}
+                            "directional_grid": 30 * batches[0],
+                            **loss_launches(GEN_MODES * batches[0], GEN_MODES * batches[1])}
                 train_launches = read(want)
                 out = f"OUTPUT_BLOCK/synth_gen/{kind}_directional_gen.pkl"
                 with open(out + ".log") as f:
@@ -3299,8 +3388,10 @@ def rank_main(outdir) -> int:
         (_, train_res), (_, val_res) = trainer._resident.values()
         step_ms = time_ms(lambda: trainer.train_step(*batch), reps=PARALLEL_TIMED_REPS,
                           warmup=2)
-        grads, loss = first_step_grads(make_mesh(world, dp, tp, dev), dev)
+        (grads, loss), step_launches, _ = counted(
+            lambda: first_step_grads(make_mesh(world, dp, tp, dev), dev))
         out[name] = {"losses": trainer.epoch_losses, "launches": launches, "seconds": seconds,
+                     "step_launches": step_launches,
                      "train_batches": batches_per_epoch(train_res),
                      "val_batches": batches_per_epoch(val_res), "step_ms": step_ms,
                      "grads": grads if rank == 0 else None, "step_loss": loss}
@@ -3406,7 +3497,13 @@ def parallel_phase(dev, rng, card, p6_predictor) -> dict:
                                                   rollout_in_launches() * train_batches,
                                                   val_losses=2 * val_batches)})
             one_ms = time_ms(lambda: one.train_step(*batch), reps=PARALLEL_TIMED_REPS, warmup=2)
+            # a sharded step: its rollout on the fused train route, its loss
+            # on the gathered rel by the loss kernels, in each rank
+            want_step = {"directional_grid": 19,
+                         **fused_train_launches(19, 1, rollout_in_launches())}
+            counters.zero()
             want_grads, want_loss = first_step_grads(None, dev)
+            counters.read(want_step)
             figures = {}
             # the same epoch from params one ulp away: one process's own f32
             # sensitivity over the epoch, beside which a sharded run's drift
@@ -3433,6 +3530,10 @@ def parallel_phase(dev, rng, card, p6_predictor) -> dict:
                     if {k: got["launches"][k] for k in want} != want:
                         raise AssertionError(f"{name} rank {r} launched {got['launches']}, "
                                              f"expected {want} (19 grid a train step)")
+                    if got["step_launches"] != {k: want_step.get(k, 0)
+                                                for k in got["step_launches"]}:
+                        raise AssertionError(f"{name} rank {r}'s sharded step launched "
+                                             f"{got['step_launches']}, expected {want_step}")
                     if got["losses"].shape != one.epoch_losses.shape:
                         raise AssertionError(f"{name} rank {r} logged {got['losses'].shape} "
                                              f"losses")
@@ -3456,6 +3557,7 @@ def parallel_phase(dev, rng, card, p6_predictor) -> dict:
                     "one_ulp_batch_loss_max_rel_err": envelope, "grad_max_err_share": grad_share,
                     "step_loss": ranks[0][name]["step_loss"], "one_step_loss": want_loss,
                     "launches_per_rank": [run[name]["launches"] for run in ranks],
+                    "step_launches_per_rank": [run[name]["step_launches"] for run in ranks],
                     "train_batches": train_batches, "val_batches": val_batches,
                     "step_ms": [run[name]["step_ms"] for run in ranks], "one_step_ms": one_ms,
                     "cli_seconds": [run[name]["seconds"] for run in ranks]}

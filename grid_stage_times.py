@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Device time per launch of the port's grid stage, fused step, train
-loss and relu masks, for the port of one or more checkouts, on one NVIDIA
-card.
+loss, its backward and relu masks, for the port of one or more checkouts,
+on one NVIDIA card.
 
     python3 grid_stage_times.py [TREE ...]
 
@@ -17,7 +17,9 @@ checkout's kernels (into TREE/build/torch_kernels/) and measures under
 - ``fused_step_kernel`` at S=1024, A=8, the flagship's widths, seeded
   weights;
 - ``fused_train_loss_kernel`` (``chip_smoke.loss_case``: 12 steps, one
-  scene in eight padded) and ``fused_train_in_backward_kernel``
+  scene in eight padded), ``fused_train_loss_backward_kernel``
+  (``chip_smoke.loss_backward_case``: the last 12 of 19 steps, 96 and
+  12,288 entries) and ``fused_train_in_backward_kernel``
   (``chip_smoke.in_backward_case``: a rollout's 19 steps of rows at the
   flagship's widths) at ``chip_smoke.TRAIN_KERNEL_SHAPES``, through the
   tree's own wrappers.
@@ -88,9 +90,9 @@ def measure(tree: Path) -> dict:
 
 
 def train_kernel_times(smoke, dev, rng, params) -> dict:
-    """Device ms a launch of the fused train route's loss and relu masks at
-    ``smoke.TRAIN_KERNEL_SHAPES``, on inputs from ``smoke``'s helpers at the
-    widths of ``params``."""
+    """Device ms a launch of the fused train route's loss, its backward and
+    the relu masks at ``smoke.TRAIN_KERNEL_SHAPES``, on inputs from
+    ``smoke``'s helpers at the widths of ``params``."""
     from trajnetplusplusbaselines_torch.ops.cuda import fused_train
 
     hidden = params["hidden2normal"]["linear"]["w"].shape[0]
@@ -99,12 +101,16 @@ def train_kernel_times(smoke, dev, rng, params) -> dict:
     times = {}
     for s, a in smoke.TRAIN_KERNEL_SHAPES:
         args = smoke.loss_case(rng, s, a, 12, "eighth", dev)[0]
+        backward_args = smoke.loss_backward_case(rng, 19, 12, s, a, dev)[0]
         dx, xh = smoke.in_backward_case(rng, 19 * s * a, x_width, x_width + hidden + 1, dev)[0]
         times[f"{s}x{a}"] = {
             "loss_entries": 12 * s,
             "loss_device_ms": smoke.kernel_ms_per_launch(
                 lambda: fused_train.fused_train_loss(*args), smoke.TRAIN_KERNEL_REPS,
                 "fused_train_loss_kernel"),
+            "loss_backward_device_ms": smoke.kernel_ms_per_launch(
+                lambda: fused_train.fused_train_loss_backward(*backward_args),
+                smoke.TRAIN_KERNEL_REPS, "fused_train_loss_backward_kernel"),
             "in_backward_rows": 19 * s * a,
             "in_backward_device_ms": smoke.kernel_ms_per_launch(
                 lambda: fused_train.fused_train_in_backward(dx, xh), smoke.TRAIN_KERNEL_REPS,

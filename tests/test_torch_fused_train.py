@@ -32,7 +32,13 @@ run their plain versions, so these tests exercise the Function whole:
 - the loss's plain version at the loss kernel's edges (every scene masked,
   one scene, P = 1) against ``losses.prediction_loss`` and the JAX
   package's, f64, at 1e-12; the block the loss kernel takes
-  (``loss_threads``);
+  (``loss_threads``); the loss's backward against the autograd gradient of
+  the whole ``rel`` at ``LOSS_BACKWARD_CASES`` (the kernel's float4 and
+  scalar paths, every scene masked too), f64, at 1e-12, and its wrapper
+  refusing a ``d_rel`` past its kernel's 32-bit index (meta tensors);
+- the VAE trainer's reconstruction (once a mode) and
+  ``make_sharded_train_step``'s loss through ``FusedPredictionLoss``, their
+  loss and gradients within 1e-12 of ``losses.prediction_loss``'s, f64;
 - each wrapper raising on a wrong dtype, device or shape; the counters in
   ``trainers/graphs.COUNTERS``; ``chip_smoke.graph_kernel_nodes`` reading
   the new kernels from a graph.
@@ -41,6 +47,7 @@ The kernels themselves run on the card only: ``chip_smoke.py`` phase 6c
 holds each against its plain version there.
 """
 
+import contextlib
 from unittest import mock
 
 import jax
@@ -663,6 +670,119 @@ def test_plain_loss_at_the_edges_matches_both_losses(case):
         assert _relative(per_entry, w_grad) <= OWN_TOL
     if case == "every_scene_masked":
         assert float(loss) == 0.0 and not dvals.any()
+
+
+# the loss backward's cases, (T', P, S, A): the train step's shape (A = 8,
+# the kernel's float4 path), A = 5, 1 and 3 (its scalar path), P = T' and
+# P = 1
+LOSS_BACKWARD_CASES = [(19, 12, 8, 8), (19, 19, 3, 5), (12, 1, 1, 1), (19, 12, 2, 3)]
+
+
+@pytest.mark.parametrize("masked", ["some", "every"])
+@pytest.mark.parametrize("t_all,p,s,a", LOSS_BACKWARD_CASES)
+def test_loss_backward_is_the_gradient_of_the_whole_rel(t_all, p, s, a, masked):
+    """``fused_train_loss_backward`` (its plain version on the CPU), from the
+    loss's own ``dvals`` and count, against the autograd gradient of
+    ``losses.prediction_loss(rel[-P:, :, 0], ...)`` times an upstream
+    gradient with respect to the whole ``rel``, f64, within 1e-12 of its
+    largest magnitude; with ``every`` scene masked (count 0) all zero.
+    ``d_rel`` starts as NaN, so every float of it is written."""
+    rng = np.random.default_rng(13)
+    rel = rng.normal(size=(t_all, s, a, 5))
+    rel[..., 2:4] = 0.01 + 0.2 / (1 + np.exp(-rel[..., 2:4]))
+    rel[..., 4] = 0.7 / (1 + np.exp(-rel[..., 4]))
+    rel = torch.tensor(rel)
+    targets = torch.tensor(rng.normal(scale=0.2, size=(p, s, 2)))
+    scenes = torch.from_numpy(np.arange(s) % 3 != 2 if masked == "some" else np.zeros(s, bool))
+    loss, count, dvals = (torch.zeros(shape, dtype=torch.float64) for shape in ((), (), (p, s, 5)))
+    fused_train.fused_train_loss(rel, targets, scenes, loss, count, dvals)
+    up = torch.tensor(1.7, dtype=torch.float64)
+    d_rel = torch.full((t_all, s, a, 5), float("nan"), dtype=torch.float64)
+    fused_train.fused_train_loss_backward(up, dvals, count, d_rel)
+    leaf = rel.clone().requires_grad_()
+    (want,) = torch.autograd.grad(
+        losses.prediction_loss(leaf[-p:, :, 0], targets, scenes) * up, leaf)
+    assert _relative(d_rel, want) <= OWN_TOL
+    if masked == "every":
+        assert float(count) == 0.0 and not d_rel.any()
+
+
+@pytest.mark.parametrize("agents,refused", [(21, False), (22, True)])
+def test_loss_backward_refuses_more_floats_than_its_32_bit_index(agents, refused):
+    """``fused_train_loss_backward`` raises where ``d_rel``'s T' S A 5
+    floats pass 2^31 - 1 (its kernel's index math is 32-bit), from the
+    shapes alone: tensors on the meta device, nothing allocated.  19 x 2^20
+    x 21 x 5 is under the limit and gets past that check, to be refused
+    only for its device."""
+    meta = dict(device="meta", dtype=torch.float32)
+    s = 2**20
+    args = dict(d_loss=torch.empty((), **meta), dvals=torch.empty(12, s, 5, **meta),
+                count=torch.empty((), **meta), d_rel=torch.empty(19, s, agents, 5, **meta))
+    assert (19 * s * agents * 5 > fused_train.LOSS_BACKWARD_MAX_FLOATS) == refused
+    with pytest.raises(ValueError, match="32-bit" if refused else "no kernel for device meta"):
+        fused_train.fused_train_loss_backward(**args)
+
+
+@pytest.mark.parametrize("criterion", ["pred", "L2"])
+def test_vae_loss_follows_the_criterion(criterion):
+    """The VAE trainer's ``pred`` reconstruction is ``FusedPredictionLoss``
+    once a mode (its plain version on the CPU) and gives
+    ``losses.prediction_loss``'s loss and gradients, within 1e-12 of each
+    one's largest magnitude in f64; ``L2`` keeps its own loss."""
+    from trajnetplusplusbaselines_torch.models.vae import VAE
+    from trajnetplusplusbaselines_torch.trainers import vae as vae_trainer
+
+    k, latent = 3, 8
+    model = VAE(pool=_model().pool, embedding_dim=8, hidden_dim=16, num_modes=k,
+                latent_dim=latent)
+    params = model.init_params(torch.Generator().manual_seed(1), dtype=torch.float64)
+    trainer = vae_trainer.Trainer(model, params, common.step_lr(1e-3, 10), criterion=criterion,
+                                  batch_size=4, augment=False)
+    xy, mask = _batch()
+    scenes = torch.tensor([True, True, True, False])
+    eps = torch.from_numpy(np.random.default_rng(3).normal(size=(k, *xy.shape[1:3], latent)))
+    with mock.patch.object(fused_train.FusedPredictionLoss, "apply",
+                           wraps=fused_train.FusedPredictionLoss.apply) as loss_fn:
+        loss, reconstr, grads = trainer.loss_and_grads(xy, mask, scenes, eps=eps)
+    assert loss_fn.call_count == (k if criterion == "pred" else 0)
+    with mock.patch.object(fused_train, "prediction_loss", _plain_prediction_loss):
+        want, want_reconstr, want_grads = trainer.loss_and_grads(xy, mask, scenes, eps=eps)
+    for got, w in ((loss, want), (reconstr, want_reconstr), *zip(grads, want_grads)):
+        assert _relative(got, w) <= OWN_TOL
+
+
+def test_sharded_step_loss_follows_the_criterion():
+    """``make_sharded_train_step``'s loss is ``FusedPredictionLoss`` on the
+    gathered ``rel`` (its plain version on the CPU), once a step, after a
+    rollout on the fused train route, and gives
+    ``losses.prediction_loss``'s loss and every leaf's gradient within 1e-12
+    of each one's largest magnitude in f64 (one process; the two-rank runs
+    of ``tests/test_torch_parallel.py`` hold a mesh to one process)."""
+    from trajnetplusplusbaselines_torch.parallel import make_sharded_train_step
+
+    model = _model()
+    params = _params(model)
+    xy, mask = _batch()
+    batch = (xy, mask, torch.zeros(xy.shape[1:], dtype=xy.dtype),
+             torch.ones(xy.shape[1:3], dtype=torch.bool), torch.tensor([True, True, True, False]))
+    step, _, place_params = make_sharded_train_step(model, common.make_optimizer, None,
+                                                    batch_size=4)
+    runs = []
+    for plain in (False, True):
+        with contextlib.ExitStack() as stack:
+            rollout, loss_fn = (stack.enter_context(mock.patch.object(
+                fn, "apply", wraps=fn.apply))
+                for fn in (fused_train.FusedTrainRollout, fused_train.FusedPredictionLoss))
+            if plain:
+                stack.enter_context(mock.patch.object(fused_train, "prediction_loss",
+                                                      _plain_prediction_loss))
+            placed, _, loss = step(place_params(params), None, *batch)
+        assert rollout.call_count == 1 and loss_fn.call_count == int(not plain)
+        runs.append((loss, [leaf.grad for leaf in _leaves(placed)]))
+    (loss, grads), (want, want_grads) = runs
+    assert _relative(loss, want) <= OWN_TOL
+    for g, w in zip(grads, want_grads):
+        assert _relative(g, w) <= OWN_TOL
 
 
 @pytest.mark.parametrize("entries,want", [(1, 32), (12, 32), (32, 32), (33, 64), (35, 64),

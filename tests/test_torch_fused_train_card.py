@@ -19,7 +19,12 @@ jax, so that it runs on the card's machine without the suite's conftest:
   and +0.0 in ``xh``) at phase 6c's further widths and rows;
   ``fused_train_loss`` within 1e-6 of its plain version with
   every scene masked (all zero), one scene, 35 entries and P = 1, at every
-  block size phase 6c times;
+  block size phase 6c times; ``fused_train_loss_backward`` bit-equal to its
+  plain version, run twice to the same bits, at
+  ``chip_smoke.TRAIN_LOSS_BACKWARD_CASES`` and ``TRAIN_KERNEL_SHAPES``, with
+  dvals drawn and with every scene masked (all zero), on a ``d_rel`` on 16
+  bytes (the float4 path where A % 4 == 0) and 4 bytes past (the scalar
+  path);
 - a small directional LSTM's loss and gradients on the route against the
   grid route and the plain loss, within 1e-5 of each leaf's largest, with
   the launches a step counted.
@@ -166,6 +171,34 @@ def test_loss_matches_its_plain_version_at_its_edges(scenes, agents, steps, mask
     assert row["max_rel_err"] <= chip_smoke.TRAIN_KERNEL_RTOL
     if masked == "all":
         assert not any(bool(x.any()) for x in runs[0])
+
+
+LOSS_BACKWARD_CASES = list(dict.fromkeys(
+    [(19, 12, s, a) for s, a in chip_smoke.TRAIN_KERNEL_SHAPES]
+    + list(chip_smoke.TRAIN_LOSS_BACKWARD_CASES)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scalar", [False, True], ids=["on_16_bytes", "4_bytes_past_16"])
+@pytest.mark.parametrize("masked", [False, True], ids=["dvals", "every_scene_masked"])
+@pytest.mark.parametrize("t_all,p,s,a", LOSS_BACKWARD_CASES)
+def test_loss_backward_gives_the_plain_versions_bits(t_all, p, s, a, masked, scalar):
+    dev = _card()
+    args, _, _ = chip_smoke.loss_backward_case(np.random.default_rng(6), t_all, p, s, a, dev,
+                                               masked)
+    wrapper = fused_train.fused_train_loss_backward
+    before = wrapper.launches
+    runs = []
+    for fn in (wrapper, wrapper, fused_train.fused_train_loss_backward_plain):
+        buffers = chip_smoke.loss_backward_buffers(args, scalar)
+        fn(*buffers)
+        runs.append(buffers[3])
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    assert chip_smoke.bits_equal(runs[:1], runs[1:2])
+    assert chip_smoke.bits_equal(runs[:1], runs[2:])
+    if masked:
+        assert not runs[0].any()
 
 
 @pytest.mark.cuda

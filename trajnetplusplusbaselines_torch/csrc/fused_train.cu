@@ -83,7 +83,11 @@
 //   normals (losses.prediction_loss: ~70 small ops forward and ~170
 //   backward under autograd), its masked mean in one block sized to the
 //   entries (fused_train.loss_threads), summed by warp shuffles; its
-//   gradient with respect to the whole rel_pred written in one pass.
+//   gradient with respect to the whole rel_pred written in one pass, in
+//   float4 where the agents are a multiple of 4, a thread a float4 in
+//   blocks of 128 (12 for the train step's 1,520): a unit that holds no
+//   primary float is stored as zeros with no load before it, the
+//   primary's are loaded and scaled by their own threads.
 //
 // What bounds them.  The cell kernels: by the card's peaks, the forward's
 // operations (2 R (E + P + H + 1) 4H FLOP: 29.4 M at 64 rows, 0.44 us at 67
@@ -106,7 +110,12 @@
 // element and a 64-bit division by the row's width (not a power of two) to
 // find its row, storing only the zeros: now a warp walks a row in float4
 // of dx, its row's base formed once, and writes each float4 whole, so it
-// reads dx too (4.7 MB moved).
+// reads dx too (4.7 MB moved).  The loss's backward writes d_rel whole
+// (24 KB at the train step, 3.1 MB at 12,288 entries: ~1.0 us) and reads
+// dvals; at the train step a launch and one trip to memory set its time,
+// so no store of a zero waits on a load or a 64-bit division, and a
+// thread stores one float4: blocks that store several units a thread
+// drain the train step's stores through fewer SMs, and took longer.
 // fused_train_in's bytes are its rows of the grid
 // and of xh and the rows of W_grid that the occupied cells name (1 KB each
 // at P = 256): ~0.2-0.4 MB at 64 rows.  No atomic sums: every sum runs in a
@@ -122,7 +131,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int ELEMENT_THREADS = 256;
 constexpr int CELL_THREADS = 256;  // a cell kernel's block
 constexpr int CELL_KC = 64;  // the forward's K (columns of xh) a stage of its ring
 constexpr int CELL_BACK_KC = 128;  // the backward's gate columns a copy group
@@ -133,16 +141,12 @@ constexpr int LOSS_MAX_THREADS = 1024;  // the loss's one block (a multiple of 3
 constexpr int IB_WARPS = 8;  // the relu masks' block: a row a warp at a time
 constexpr int IB_RPT = 2;  // rows a warp takes: a tile of 16 rows a block
 constexpr int IB_UNITS = 3;  // float4 of a row a lane has in flight (80 a flagship row)
+constexpr int LB_THREADS = 128;  // the loss backward's block, a unit a thread
 constexpr float INV_TWO_PI = 0.15915494309189535f;
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
 
 __device__ __forceinline__ float relu(float x) { return x > 0.f ? x : 0.f; }
-
-int element_blocks(long total) {
-  long blocks = (total + ELEMENT_THREADS - 1) / ELEMENT_THREADS;
-  return static_cast<int>(blocks < MAX_BLOCKS ? (blocks > 0 ? blocks : 1) : MAX_BLOCKS);
-}
 
 // Part 0 of a row: the velocity embedding, the tag and ones columns, v4
 // and the mask.
@@ -1004,22 +1008,55 @@ __global__ void __launch_bounds__(LOSS_MAX_THREADS)
 }
 
 // d_rel [t_all, s, a, 5]: d_loss / max(count, 1) times dvals at the
-// primaries' last p steps, zero elsewhere.
-__global__ void fused_train_loss_backward_kernel(const float* __restrict__ d_loss,
-                                                 const float* __restrict__ dvals,
-                                                 const float* __restrict__ count,
-                                                 float* __restrict__ d_rel, int t_all, int p,
-                                                 int s, int a) {
-  const float scale = *d_loss / fmaxf(*count, 1.f);
-  const long total = static_cast<long>(t_all) * s * a * 5;
-  for (long idx = blockIdx.x * static_cast<long>(blockDim.x) + threadIdx.x; idx < total;
-       idx += static_cast<long>(gridDim.x) * blockDim.x) {
-    const long row = idx / 5;
-    const int agent = static_cast<int>(row % a), sc = static_cast<int>((row / a) % s);
-    const int t = static_cast<int>(row / (static_cast<long>(a) * s)) - (t_all - p);
-    d_rel[idx] = agent == 0 && t >= 0 ? dvals[5 * (static_cast<long>(t) * s + sc) + idx % 5] *
-                                            scale
-                                      : 0.f;
+// primaries' last p steps, zero elsewhere, as units of float4 (VEC: a % 4
+// == 0, d_rel on 16 bytes) or of one float, a thread a unit (grid-strided
+// beyond MAX_BLOCKS blocks).  The first `zeros` units are the steps before
+// the last p, one zero range; then a row of `width` units a (step, scene)
+// of the last p, in dvals' order, whose first PRIMARY units hold the
+// primary's 5 floats (VEC: its first four, then its fifth beside three
+// zeros of agent 1) and whose others are zero.  A thread whose unit holds
+// no primary float stores its zeros with no load before them; only a
+// thread of a primary unit loads d_loss, count and its dvals, and stores
+// them scaled, so each unit has one writer.  All index math is 32-bit (the
+// launch refuses more than INT32_MAX floats): one unsigned division by
+// `width` for a unit of the last p steps.  The scale and the products round
+// as the plain version's: an IEEE division, then one multiplication.
+template <bool VEC>
+__global__ void __launch_bounds__(LB_THREADS)
+    fused_train_loss_backward_kernel(const float* __restrict__ d_loss,
+                                     const float* __restrict__ dvals,
+                                     const float* __restrict__ count, float* __restrict__ d_rel,
+                                     unsigned zeros, unsigned total, unsigned width) {
+  constexpr unsigned PRIMARY = VEC ? 2 : 5;
+  for (unsigned i = blockIdx.x * LB_THREADS + threadIdx.x; i < total;
+       i += gridDim.x * LB_THREADS) {
+    unsigned row = 0, k = PRIMARY;  // k < PRIMARY: the unit's place among the primary's
+    if (i >= zeros) {
+      row = (i - zeros) / width;
+      k = i - zeros - row * width;
+    }
+    if (k >= PRIMARY) {
+      if (VEC) {
+        reinterpret_cast<float4*>(d_rel)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      } else {
+        d_rel[i] = 0.f;
+      }
+      continue;
+    }
+    const float* d = dvals + 5 * row + (VEC ? 4 * k : k);
+    const bool four = VEC && k == 0;  // the primary's first four floats, else one
+    const float dl = *d_loss, n = *count;
+    float4 v = make_float4(d[0], 0.f, 0.f, 0.f);
+    if (four) v = make_float4(v.x, d[1], d[2], d[3]);
+    const float scale = __fdiv_rn(dl, fmaxf(n, 1.f));
+    const float4 out = make_float4(__fmul_rn(v.x, scale), four ? __fmul_rn(v.y, scale) : 0.f,
+                                   four ? __fmul_rn(v.z, scale) : 0.f,
+                                   four ? __fmul_rn(v.w, scale) : 0.f);
+    if (VEC) {
+      reinterpret_cast<float4*>(d_rel)[i] = out;
+    } else {
+      d_rel[i] = out.x;
+    }
   }
 }
 
@@ -1167,12 +1204,28 @@ int dlstm_train_loss(const float* rel, const float* targets, const uint8_t* scen
   return static_cast<int>(cudaGetLastError());
 }
 
-// d_loss, count one float each; dvals [p, s, 5]; d_rel [t_all, s, a, 5].
+// d_loss, count one float each; dvals [p, s, 5]; d_rel [t_all, s, a, 5],
+// at most INT32_MAX floats.
 int dlstm_train_loss_backward(const float* d_loss, const float* dvals, const float* count,
                               float* d_rel, int t_all, int p, int s, int a, void* stream) {
-  fused_train_loss_backward_kernel<<<element_blocks(static_cast<long>(t_all) * s * a * 5),
-                                     ELEMENT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      d_loss, dvals, count, d_rel, t_all, p, s, a);
+  const long long floats = static_cast<long long>(t_all) * s * a * 5;
+  if (t_all < 1 || p < 1 || p > t_all || s < 1 || a < 1 || floats > INT32_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool vec = a % 4 == 0 && reinterpret_cast<uintptr_t>(d_rel) % 16 == 0;
+  const unsigned unit = vec ? 4 : 1, row = 5u * static_cast<unsigned>(a);
+  const unsigned total = static_cast<unsigned>(floats) / unit;
+  const unsigned zeros = static_cast<unsigned>(t_all - p) * static_cast<unsigned>(s) * row / unit;
+  const unsigned blocks = (total + LB_THREADS - 1) / LB_THREADS;
+  const dim3 grid(blocks < MAX_BLOCKS ? blocks : MAX_BLOCKS);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vec) {
+    fused_train_loss_backward_kernel<true>
+        <<<grid, LB_THREADS, 0, st>>>(d_loss, dvals, count, d_rel, zeros, total, row / unit);
+  } else {
+    fused_train_loss_backward_kernel<false>
+        <<<grid, LB_THREADS, 0, st>>>(d_loss, dvals, count, d_rel, zeros, total, row / unit);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -71,6 +71,8 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from ... import losses
+
 
 # ------------------------------------------------------------ plain versions
 def fused_train_in_plain(obs1, obs2, present1, present2, grid, w_emb, b_emb, w_grid, b_grid, xh,
@@ -322,6 +324,8 @@ def cell_tile_rows(rows: int, hidden: int, kernel: str = "forward") -> int:
 # 6c (a) times ``chip_smoke.LOSS_TIMED_THREADS``) a thread an entry is as
 # fast as any larger block at 96 entries and 1,024 the fastest at 12,288
 LOSS_MAX_THREADS = 1024
+# the loss backward's d_rel at most (its kernel's index math is 32-bit)
+LOSS_BACKWARD_MAX_FLOATS = 2**31 - 1
 
 
 def loss_threads(entries: int) -> int:
@@ -519,12 +523,16 @@ fused_train_loss.launches = 0
 def fused_train_loss_backward(d_loss, dvals, count, d_rel) -> None:
     """The loss's gradient with respect to ``rel``
     (``fused_train_loss_backward_plain``): ``d_loss`` [], ``dvals`` [P, S, 5],
-    ``count`` []; writes ``d_rel`` [T', S, A, 5].  The kernel on the card,
-    the plain version on the CPU."""
+    ``count`` []; writes ``d_rel`` [T', S, A, 5], at most
+    ``LOSS_BACKWARD_MAX_FLOATS`` floats.  The kernel on the card, the plain
+    version on the CPU."""
     t_all, s, a = d_rel.shape[:3]
     p = dvals.shape[0]
     dev, dt = d_rel.device, d_rel.dtype
     _check_rows(t_all * s * a)
+    if t_all * s * a * 5 > LOSS_BACKWARD_MAX_FLOATS:
+        raise ValueError(f"d_rel holds {t_all * s * a * 5} floats, more than the kernel's "
+                         f"32-bit index math takes ({LOSS_BACKWARD_MAX_FLOATS})")
     if not 1 <= p <= t_all:
         raise ValueError(f"the loss reads 1 to {t_all} steps, got {p}")
     for name, x, shape, dtype in (
@@ -704,5 +712,16 @@ def prediction_loss(rel, targets, scene_mask):
     normals of a rollout's ``rel`` [T', S, A, 5] (``FusedPredictionLoss``);
     ``targets`` in another float dtype are cast to ``rel``'s (exact where
     they are narrower, as the plain loss promotes them)."""
-    return FusedPredictionLoss.apply(rel, targets.to(rel.dtype).contiguous(),
+    return FusedPredictionLoss.apply(rel.contiguous(), targets.to(rel.dtype).contiguous(),
                                      scene_mask.contiguous())
+
+
+def criterion_loss(rel, targets, scene_mask):
+    """The trainers' ``pred`` criterion on a rollout's ``rel`` [T', S, A,
+    5], whichever route made it: ``prediction_loss`` (the loss kernels)
+    wherever they take ``rel`` (f32 on the card; on the CPU their plain
+    versions, any dtype), else ``losses.prediction_loss`` of the primaries'
+    last ``targets.shape[0]`` normals."""
+    if rel.device.type == "cpu" or rel.dtype == torch.float32:
+        return prediction_loss(rel, targets, scene_mask)
+    return losses.prediction_loss(rel[-targets.shape[0]:, :, 0], targets, scene_mask)

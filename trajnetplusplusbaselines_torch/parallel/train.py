@@ -12,7 +12,7 @@ from typing import Callable, Optional
 
 import torch
 
-from ..losses import prediction_loss
+from ..ops.cuda import fused_train
 from .mesh import (Mesh, batch_sharding, gather_params, param_shardings, replicated,
                    scene_sharding, shard_params, tree_map_with_path)
 from .multihost import put_global
@@ -40,7 +40,8 @@ def make_sharded_train_step(model, optimizer: Callable, mesh: Optional[Mesh],
       scores the whole);
     - ``step(params, opt, *batch) -> (params, opt, loss)``: one
       loss -> gradient -> update of the placed params in place, the loss
-      ``prediction_loss(...) * batch_size`` of the whole batch; ``opt`` None
+      ``fused_train.criterion_loss(...) * batch_size`` of the whole batch
+      (``losses.prediction_loss``'s, on the gathered ``rel``); ``opt`` None
       makes the optimizer over the params' leaves.  Afterwards each leaf's
       ``grad`` is its gradient, summed over ``data``."""
     seq_length = obs_length + pred_length
@@ -62,7 +63,7 @@ def make_sharded_train_step(model, optimizer: Callable, mesh: Optional[Mesh],
         if mesh is not None:
             rel = mesh.gather_scenes(rel, 1)
         targets = xy[obs_length:seq_length, :, 0] - xy[obs_length - 1:seq_length - 1, :, 0]
-        loss = prediction_loss(rel[-pred_length:, :, 0], targets, scene_mask) * batch_size
+        loss = fused_train.criterion_loss(rel, targets, scene_mask) * batch_size
         grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
         if mesh is not None:
             grads = mesh.sum_over_data(grads)

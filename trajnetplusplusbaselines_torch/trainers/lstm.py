@@ -82,7 +82,7 @@ import torch
 
 from .. import __version__ as VERSION
 from ..data.load import prepare_data
-from ..losses import collision_loss, l2_loss, prediction_loss
+from ..losses import collision_loss, l2_loss
 from ..models.lstm import LSTM, LSTMPredictor
 from ..ops.cuda import fused_train
 from ..ops.pooling import POOL_TYPES, make_pool
@@ -176,18 +176,14 @@ class Trainer(EpochLoop):
     # ------------------------------------------------------------------ step
     def _loss_from_outputs(self, rel, pred, valid, xy, mask, scene_mask):
         """Primary-only criterion (+ optional collision term), x batch size;
-        the ``pred`` criterion as ``fused_train.prediction_loss`` wherever
-        its kernel takes ``rel`` (f32 on the card; on the CPU its plain
-        version, any dtype), whichever route made ``rel``."""
+        the ``pred`` criterion as ``fused_train.criterion_loss``, whichever
+        route made ``rel``."""
         targets = (xy[self.obs_length:self.seq_length, :, 0]
                    - xy[self.obs_length - 1:self.seq_length - 1, :, 0])  # [pred, S, 2]
-        primary_rel = rel[-self.pred_length:, :, 0]  # [pred, S, 5]
         if self.criterion == "L2":
-            loss = l2_loss(primary_rel, targets, scene_mask)
-        elif rel.device.type == "cpu" or rel.dtype == torch.float32:
-            loss = fused_train.prediction_loss(rel, targets, scene_mask)
+            loss = l2_loss(rel[-self.pred_length:, :, 0], targets, scene_mask)
         else:
-            loss = prediction_loss(primary_rel, targets, scene_mask)
+            loss = fused_train.criterion_loss(rel, targets, scene_mask)
 
         if self.col_wt:
             # the primary's own predictions in the data's dtype, as JAX's

@@ -19,7 +19,10 @@ latent normals come from the trainer's ``torch.Generator``.
 On the card a directional grid's train step launches the grid stage 30
 times (8 encoder, 11 prediction-encoder and 11 decoder steps; the k modes
 decode as one batch); validation records no autograd, so a flagship VAE
-takes the fused step there, 30 launches per batch.
+takes the fused step there, 30 launches per batch.  The ``pred`` criterion
+is ``fused_train.criterion_loss`` of each mode's ``rel``: in f32 on the
+card the loss kernel once a mode, and its backward once a mode in a train
+step.
 
 ``--bf16`` and ``--remat`` as in the LSTM trainer; ``--obs_dropout``
 trains the JAX trainer's host path: batches packed on the host
@@ -40,8 +43,9 @@ import time
 
 import torch
 
-from ..losses import kld_loss, l2_loss, prediction_loss
+from ..losses import kld_loss, l2_loss
 from ..models.vae import VAE, VAEPredictor
+from ..ops.cuda import fused_train
 from ..ops.pooling import make_pool
 from .common import optimizer_step, packed_batch, step_lr
 from . import lstm as lstm_trainer
@@ -75,9 +79,11 @@ class Trainer(lstm_trainer.Trainer):
             training=True, eps=eps, rng=self.generator, goals=goals, slot_mask=slot_mask)
         targets = (xy[self.obs_length:self.seq_length, :, 0]
                    - xy[self.obs_length - 1:self.seq_length - 1, :, 0])
-        loss = l2_loss if self.criterion == "L2" else prediction_loss
-        reconstr = sum(loss(r[-self.pred_length:, :, 0], targets, scene_mask) * self.batch_size
-                       for r in rel) / self.model.num_modes
+        if self.criterion == "L2":
+            modes = [l2_loss(r[-self.pred_length:, :, 0], targets, scene_mask) for r in rel]
+        else:  # each mode's rel [T', S, A, 5]
+            modes = [fused_train.criterion_loss(r, targets, scene_mask) for r in rel]
+        reconstr = sum(m * self.batch_size for m in modes) / self.model.num_modes
         kld = kld_loss(z_xy[:, 0], z_x[:, 0] if z_x is not None else None) * self.batch_size
         return reconstr, kld
 
